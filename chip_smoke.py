@@ -9,8 +9,10 @@ Phases, each a JSON line on stdout:
      from csrc/ (one nvcc per source, all started together);
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes the main path gives it (a 32-row stage-2 batch
-     of 5 s windows), with its time, the plain version's time and the
-     least time the card could take for the same work;
+     of 5 s windows), with its device time (ms; call_ms adds the host's
+     enqueue of one call on an idle card), the plain version's time and
+     the least time the card could take for the same work; for the bf16
+     ASP kernel also its registers, spills and blocks an SM;
   3. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
      same weights on the card and on the CPU, in float32 with TF32 off:
      embeddings must agree and the turns must be equal;
@@ -18,7 +20,9 @@ Phases, each a JSON line on stdout:
      ECAPA-TDNN, default config: bf16 ECAPA trunk, f16 transfer), seeded
      random weights, three requests on a synthetic 59 s clip; every kernel
      must launch 12 times per request (128 padded chunks x 3 speakers / 32);
-     then one more request under torch.profiler (device time by kernel);
+     one more request with the ASP masks watched (the share of frames
+     valid and walked); then one more under torch.profiler (device time by
+     kernel, the port's own kernels by name);
   5. the kernel summary line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
@@ -29,9 +33,11 @@ without the package beside it.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,15 +74,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() after ``warmup`` calls
-    (no L2 flush between calls)."""
+# a device spin of about 2 ms at the H100's clocks: longer than the host
+# takes to enqueue any call timed here
+SLEEP_CYCLES = 4_000_000
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of one fn() call each, after
+    ``warmup`` calls (no L2 flush between calls). ``queued``: the events and
+    the call are enqueued behind a device spin, so they time the device
+    alone; else the device is idle when the start event runs, and the time
+    includes the host's enqueue of the call (wrapper and launch)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -97,9 +113,27 @@ def within(torch, got, want, rtol, atol) -> bool:
     return bool(torch.isclose(got.float(), want.float(), rtol=rtol, atol=atol).all())
 
 
+def walk_ends(torch, valid):
+    """Per row of a (rows, T) bool mask: one past its last valid frame (0 if
+    none), the end of the bf16 ASP kernel's walk over T."""
+    idx = torch.arange(1, valid.shape[1] + 1, device=valid.device)
+    return (valid * idx).amax(dim=1)
+
+
+def ptxas_report(log: str, kernel: str):
+    """(registers, spill store bytes) of one kernel in nvcc's -Xptxas -v log."""
+    for chunk in log.split("Compiling entry function")[1:]:
+        if kernel in chunk.split("\n", 1)[0]:
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            return (int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None)
+    return None, None
+
+
 def kernel_phase(torch):
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import FrontendConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import (
+        _cuda_lib,
         asp_cuda,
         frontend as fe,
         frontend_cuda,
@@ -132,6 +166,7 @@ def kernel_phase(torch):
         kept_share=kept / (BATCH * WINDOW),
         bound_bytes=nbytes,
         ms=time_ms(torch, lambda: pack_cuda.pack_frames(wav, keep)),
+        call_ms=time_ms(torch, lambda: pack_cuda.pack_frames(wav, keep), queued=False),
         plain_ms=time_ms(torch, lambda: pack_cuda.pack_frames_plain(wav, keep)),
         bound_ms=b,
         bound_by=by,
@@ -163,6 +198,7 @@ def kernel_phase(torch):
         bound_bytes=nbytes,
         bound_flops=flops,
         ms=time_ms(torch, lambda: frontend_cuda.log_mel_spectrogram(*args)),
+        call_ms=time_ms(torch, lambda: frontend_cuda.log_mel_spectrogram(*args), queued=False),
         plain_ms=time_ms(torch, lambda: frontend_cuda.log_mel_spectrogram_plain(*args)),
         bound_ms=b,
         bound_by=by,
@@ -172,9 +208,7 @@ def kernel_phase(torch):
     # --- ASP tail: x (32, 3072, 501), attention (32, 128, 501) --------------
     C, A, T = 3072, 128, frames
     x32 = torch.from_numpy(rng.normal(size=(BATCH, C, T)).astype(np.float32)).to(dev)
-    a32 = torch.tanh(
-        torch.from_numpy(rng.normal(size=(BATCH, A, T)).astype(np.float32)).to(dev)
-    )
+    attn32 = torch.from_numpy(rng.normal(size=(BATCH, A, T)).astype(np.float32)).to(dev)
     bound_w = 1.0 / np.sqrt(A)
     w32 = torch.from_numpy(rng.uniform(-bound_w, bound_w, (C, A)).astype(np.float32)).to(dev)
     b32 = torch.from_numpy(rng.uniform(-bound_w, bound_w, C).astype(np.float32)).to(dev)
@@ -190,7 +224,8 @@ def kernel_phase(torch):
         ("bfloat16", dict(mean=(8e-3, 1e-4), std=(8e-3, 1e-4))),
     ):
         tdt = getattr(torch, dtype)
-        x, a, w = x32.to(tdt), a32.to(tdt), w32.to(tdt)
+        # a_tanh laid out as the model lays it out for this dtype
+        x, a, w = x32.to(tdt), asp_cuda.attention_tanh(attn32.to(tdt)), w32.to(tdt)
         mk_, sk = asp_cuda.asp_pool(x, a, w, b32, mask)
         mp, sp = asp_cuda.asp_pool_plain(x, a, w, b32, mask)
         torch.cuda.synchronize()
@@ -215,11 +250,22 @@ def kernel_phase(torch):
             bound_bytes=nbytes,
             bound_flops=flops,
             ms=time_ms(torch, lambda: asp_cuda.asp_pool(x, a, w, b32, mask)),
+            call_ms=time_ms(torch, lambda: asp_cuda.asp_pool(x, a, w, b32, mask), queued=False),
             plain_ms=time_ms(torch, lambda: asp_cuda.asp_pool_plain(x, a, w, b32, mask)),
             bound_ms=b,
             bound_by=by,
             shapes=f"x (32, 3072, {T}) {dtype}, a_tanh (32, 128, {T}) -> 2 x (32, 3072)",
         )
+    # the bf16 kernel's registers and spills (nvcc -Xptxas -v) and occupancy
+    regs, spill = ptxas_report(_cuda_lib.build_log("asp"), "asp_bf16_kernel")
+    blocks = ctypes.c_int(0)
+    occupancy = _cuda_lib.library("asp").asp_bf16_blocks_per_sm
+    occupancy.restype = ctypes.c_int
+    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    _cuda_lib.check("asp", occupancy(A, T, ctypes.byref(blocks)))
+    results["asp_pool_bfloat16"].update(
+        registers=regs, spill_bytes=spill, blocks_per_sm=blocks.value
+    )
     for name, r in results.items():
         emit({"kernel": name, **r})
     return results
@@ -366,8 +412,9 @@ def main_path_phase(torch, counters):
             }
         )
     totals = {name: fn.launches for name, fn in counters.items()}
-    # outputs: finite embeddings of the expected shape (one more, uncounted run)
-    pending = pipe._dispatch(clip)
+    # outputs: finite embeddings of the expected shape (one more, uncounted
+    # run), and the ASP masks that run passes
+    pending = asp_frame_shares(torch, pipe, clip)
     emb = pending["emb"].float()
     rows = pending["num_chunks"] * seg.num_speakers
     check(
@@ -380,6 +427,44 @@ def main_path_phase(torch, counters):
     )
     profile_request(torch, pipe, clip)
     return totals, expected
+
+
+def asp_frame_shares(torch, pipe, clip):
+    """Dispatch one request with the ASP call watched; emit the share of its
+    frames that are valid and the share the bf16 kernel walks (each row up to
+    its last valid frame, in 64-frame tiles). Returns the pending outputs."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
+
+    real, masks = ecapa.asp_pool, []
+
+    def watched(x, a_tanh, w, bias, mask, eps=1e-12):
+        masks.append(mask > 0)
+        return real(x, a_tanh, w, bias, mask, eps)
+
+    ecapa.asp_pool = watched
+    try:
+        pending = pipe._dispatch(clip)
+        torch.cuda.synchronize()
+    finally:
+        ecapa.asp_pool = real
+    valid = torch.cat(masks)
+    rows, T = valid.shape
+    ends = walk_ends(torch, valid)
+    tile = 64
+    emit(
+        {
+            "asp_frames": "main path, one 59 s request (uncounted run)",
+            "calls": len(masks),
+            "rows": rows,
+            "frames": T,
+            "valid_share": float(valid.sum()) / (rows * T),
+            "walked_share": float(ends.sum()) / (rows * T),
+            "walked_tile_share": float(((ends + tile - 1) // tile).sum())
+            / (rows * ((T + tile - 1) // tile)),
+            "empty_rows": int((ends == 0).sum()),
+        }
+    )
+    return pending
 
 
 def union_length(spans) -> float:
@@ -419,12 +504,18 @@ def profile_request(torch, pipe, clip):
         acc[0] += (e.time_range.end - e.time_range.start) / 1e3
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    ours = {
+        name[:60]: {"device_ms": ms, "calls": n}
+        for name, (ms, n) in by_name.items()
+        if any(k in name for k in ("asp_bf16_kernel", "asp_kernel", "log_mel_kernel", "pack_kernel"))
+    }
     emit(
         {
             "profile": "one 59 s request under torch.profiler",
             "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "port_kernels": ours,
             "top": [
                 {"name": name[:90], "device_ms": ms, "calls": n} for name, (ms, n) in top
             ],
@@ -449,8 +540,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     build_s = _cuda_lib.build()
     ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        for name, log in _cuda_lib.BUILD_LOG.items()
+        name: [
+            ln.strip()
+            for ln in _cuda_lib.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln
+        ]
+        for name in _cuda_lib.KERNELS
     }
     emit(
         {

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.asp_cuda import asp_pool
+from ..ops.asp_cuda import asp_pool, attention_tanh
 from . import layers as L
 
 
@@ -151,7 +151,7 @@ class AttentiveStatsPool(nn.Module):
             attn = self.tdnn(x)
         mean, std = asp_pool(
             x.contiguous(),
-            torch.tanh(attn).contiguous(),
+            attention_tanh(attn),
             self.conv.weight[:, :, 0],
             self.conv.bias,
             mask,

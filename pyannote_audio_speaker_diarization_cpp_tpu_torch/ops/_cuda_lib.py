@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``_build/lib<name>-<digest>.so`` (the digest covers the source
 and the flags, so an edited source never loads a stale library), which is
-loaded with ``ctypes``. Builds happen at first use, never at import: the CPU
+loaded with ``ctypes``; nvcc's report is kept beside it as ``.log``. Builds happen at first use, never at import: the CPU
 test host has no ``nvcc``. ``build`` starts one ``nvcc`` per missing library,
 all at once, and waits for every one of them.
 """
@@ -31,8 +31,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's report per kernel library (registers, shared memory, spills)
-BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -74,15 +72,22 @@ def build(names: Iterable[str] = KERNELS) -> float:
     failed = []
     for name, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        BUILD_LOG[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            _target(name).with_suffix(".log").write_text(log)
             os.replace(tmp, _target(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's report of the built library ``name`` (registers, shared memory
+    and spills of each kernel, from ``-Xptxas -v``); "" if not built."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

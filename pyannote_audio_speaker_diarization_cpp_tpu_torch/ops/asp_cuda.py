@@ -2,9 +2,12 @@
 version.
 
 Replaces the TPU kernel ``asp_pool_pallas`` (JAX package ops/asp_pallas.py).
-The kernel is ``csrc/asp.cu``; its header says what bounds it on the H100
-(the bytes of x) and how it is laid out. Unlike the TPU kernel it takes any
-channel count C (the channel edge is masked).
+The kernels are in ``csrc/asp.cu``, one per type of x: bfloat16 (the main
+path) runs the score product on the tensor cores and stops each row at its
+last valid frame; float32 keeps float32-exact products on the FMA units.
+The file's header says what bounds them on the H100 (the bytes of x) and how
+they are laid out. Unlike the TPU kernel they take any channel count C (the
+channel edge is masked).
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ import ctypes
 import torch
 
 from . import _cuda_lib
+
+_BF16_OR_F32 = (torch.bfloat16, torch.float32)
+_MAX_FRAMES_BF16 = 1 << 22  # the bf16 kernel indexes a row's frames in 32 bits
 
 
 def asp_pool_plain(
@@ -38,6 +44,22 @@ def asp_pool_plain(
     return mean.to(x.dtype), std.to(x.dtype)
 
 
+def _frame_rows(B: int, A: int, T: int, like: torch.Tensor) -> torch.Tensor:
+    """An empty (B, A, T) tensor whose rows of frames start 16-byte aligned:
+    a view of a buffer with rows padded to a multiple of 8 frames."""
+    return torch.empty((B, A, -(-T // 8) * 8), dtype=like.dtype, device=like.device)[..., :T]
+
+
+def attention_tanh(attn: torch.Tensor) -> torch.Tensor:
+    """tanh(attn) for ``asp_pool``'s a_tanh, (B, A, T), laid out as the
+    kernel of its dtype reads it: for bfloat16, rows padded to a multiple of
+    8 frames so that each starts 16-byte aligned (written by the one tanh
+    launch); otherwise, or where autograd records the call, contiguous."""
+    if attn.dtype != torch.bfloat16 or (torch.is_grad_enabled() and attn.requires_grad):
+        return torch.tanh(attn).contiguous()
+    return torch.tanh(attn, out=_frame_rows(*attn.shape, like=attn))
+
+
 def asp_pool(
     x: torch.Tensor,
     a_tanh: torch.Tensor,
@@ -49,14 +71,16 @@ def asp_pool(
     """Fused ASP tail.
 
     x:      (B, C, T)  pooled-over activations, float32 or bfloat16
-    a_tanh: (B, A, T)  tanh of the attention TDNN output, x's dtype
+    a_tanh: (B, A, T)  tanh of the attention TDNN output, x's dtype (bfloat16:
+                       best as ``attention_tanh`` lays it out, else copied so)
     w:      (C, A)     the 1x1 conv weight expanding A -> C, x's dtype
     bias:   (C,)       its bias (any float dtype; used in float32)
-    mask:   (B, T)     > 0 on valid frames (length mask)
+    mask:   (B, T)     > 0 on valid frames (length mask), any float dtype
     Returns (mean, std), each (B, C) in x's dtype.
 
-    On a CUDA tensor this launches ``csrc/asp.cu``; on a CPU tensor it runs
-    ``asp_pool_plain``.
+    On a CUDA tensor this launches the kernel of x's dtype in
+    ``csrc/asp.cu`` (bfloat16 takes A up to its ``asp_max_attention()``,
+    256) or raises; on a CPU tensor it runs ``asp_pool_plain``.
     """
     if x.dim() != 3 or a_tanh.dim() != 3 or w.dim() != 2 or mask.dim() != 2:
         raise ValueError("asp_pool wants x (B,C,T), a_tanh (B,A,T), w (C,A), mask (B,T)")
@@ -82,11 +106,8 @@ def asp_pool(
         raise ValueError(f"asp_pool: x must be float32 or bfloat16, got {x.dtype}")
     if a_tanh.dtype != x.dtype or w.dtype != x.dtype:
         raise ValueError("asp_pool: a_tanh and w must have x's dtype")
-    if not (x.is_contiguous() and a_tanh.is_contiguous()):
-        raise ValueError("asp_pool: x and a_tanh must be contiguous")
-    wt = w.t().contiguous()  # (A, C): coalesced weight loads in the kernel
-    bias32 = bias.to(torch.float32).contiguous()
-    mask32 = mask.to(torch.float32).contiguous()
+    if not x.is_contiguous():
+        raise ValueError("asp_pool: x must be contiguous")
     mean = torch.empty((B, C), dtype=x.dtype, device=x.device)
     std = torch.empty((B, C), dtype=x.dtype, device=x.device)
     if B == 0 or C == 0:
@@ -94,31 +115,64 @@ def asp_pool(
     if T == 0:
         raise ValueError("asp_pool: no frames to pool")
     lib = _cuda_lib.library("asp")
-    fn = lib.asp_pool_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int]
-        + [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    with torch.cuda.device(x.device):
-        err = fn(
-            int(x.dtype == torch.bfloat16),
+    if x.dtype == torch.bfloat16:
+        lib.asp_max_attention.restype = ctypes.c_int
+        lib.asp_max_attention.argtypes = []
+        max_a = lib.asp_max_attention()
+        if A > max_a or T >= _MAX_FRAMES_BF16:
+            raise ValueError(
+                f"asp_pool: the bfloat16 kernel takes A <= {max_a} and "
+                f"T < {_MAX_FRAMES_BF16}, got A {A}, T {T}"
+            )
+        lda = a_tanh.stride(1)
+        if not (
+            a_tanh.stride(2) == 1
+            and lda % 8 == 0
+            and a_tanh.stride(0) == A * lda
+            and a_tanh.data_ptr() % 16 == 0
+        ):
+            a_tanh = _frame_rows(B, A, T, like=a_tanh).copy_(a_tanh)
+            lda = a_tanh.stride(1)
+        # W (C, A) as given (the conv weight's view is contiguous); bias and
+        # mask in their own type when that is bfloat16 or float32
+        w = w.contiguous()
+        bias = bias if bias.dtype in _BF16_OR_F32 else bias.float()
+        mask = mask if mask.dtype in _BF16_OR_F32 else mask.float()
+        bias, mask = bias.contiguous(), mask.contiguous()
+        fn = lib.asp_pool_bf16_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2
+            + [ctypes.c_int]
+            + [ctypes.c_void_p] * 2
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        args = (
             x.data_ptr(),
             a_tanh.data_ptr(),
-            wt.data_ptr(),
-            bias32.data_ptr(),
-            mask32.data_ptr(),
-            mean.data_ptr(),
-            std.data_ptr(),
-            B,
-            C,
-            A,
-            T,
-            eps,
-            _cuda_lib.stream_of(x),
+            lda,
+            w.data_ptr(),
+            bias.data_ptr(),
+            int(bias.dtype == torch.bfloat16),
+            mask.data_ptr(),
+            int(mask.dtype == torch.bfloat16),
         )
+    else:
+        a_tanh = a_tanh.contiguous()
+        wt = w.t().contiguous()  # (A, C): coalesced weight loads in the kernel
+        bias = bias.to(torch.float32).contiguous()
+        mask = mask.to(torch.float32).contiguous()
+        fn = lib.asp_pool_f32_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        args = (x.data_ptr(), a_tanh.data_ptr(), wt.data_ptr(), bias.data_ptr(), mask.data_ptr())
+    with torch.cuda.device(x.device):
+        err = fn(*args, mean.data_ptr(), std.data_ptr(), B, C, A, T, eps, _cuda_lib.stream_of(x))
     _cuda_lib.check("asp", err)
     asp_pool.launches += 1
     return mean, std

@@ -24,7 +24,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _asp_inputs(B, A, C, T, seed, holes=False):
+def _asp_inputs(B, A, C, T, seed, holes=False, last_only=False):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, C, T)).astype(np.float32)
     a = np.tanh(rng.normal(size=(B, A, T))).astype(np.float32)
@@ -32,8 +32,11 @@ def _asp_inputs(B, A, C, T, seed, holes=False):
     b = (rng.normal(size=(C,)) * 0.1).astype(np.float32)
     lens = rng.uniform(0.3, 1.0, B).astype(np.float32)
     mask = (np.arange(T)[None, :] < (lens * T)[:, None]).astype(np.float32)
-    if holes:  # invalid frames inside the length too, whole 32-frame tiles among them
-        mask[:, 20:110] = 0.0
+    if holes:  # invalid frames inside the length too, whole 64-frame tiles among them
+        mask[:, 20:150] = 0.0
+    if last_only:  # the first row's only valid frame is its last one
+        mask[0] = 0.0
+        mask[0, -1] = 1.0
     return x, a, w, b, mask
 
 
@@ -61,17 +64,57 @@ def test_log_mel_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (dtype, B, A, C, T, mask kind): the main path's shapes in both types, then
+# the bf16 kernel's edges: T not a multiple of its 64-frame tile, the channel
+# edge (C = 200), K padding (A = 40), one row, a row whose only valid frame
+# is its last, masks with holes, mask, bias and a_tanh as the model passes
+# them (bf16, a_tanh rows padded to 16 bytes), and rows that all start at an
+# odd element (T even, x and a_tanh at an odd storage offset)
+_ASP_CASES = [
+    (dtype, 32, 128, C, 501, kind)
+    for dtype in (_F32, _BF16)
+    for C in (3072, 200)
+    for kind in ("lengths", "holes")
+] + [
+    (_BF16, 8, 128, 256, 37, "lengths"),
+    (_BF16, 8, 40, 3072, 501, "lengths"),
+    (_BF16, 4, 40, 200, 37, "holes"),
+    (_BF16, 1, 128, 3072, 501, "lengths"),
+    (_BF16, 4, 128, 200, 501, "last_only"),
+    (_BF16, 4, 128, 384, 37, "last_only"),
+    (_BF16, 8, 128, 3072, 501, "bf16_mask_bias"),
+    (_BF16, 4, 40, 200, 128, "odd_offset"),
+]
+
+
+def _at_odd_offset(t):
+    """A contiguous copy of t whose storage starts one element into its buffer."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [3072, 200])
-@pytest.mark.parametrize("holes", [False, True])
-def test_asp_kernel_matches_plain(cuda, dtype, C, holes):
+@pytest.mark.parametrize("dtype,B,A,C,T,kind", _ASP_CASES)
+def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
     x, a, w, b, mask = (
         torch.from_numpy(v).to(cuda)
-        for v in _asp_inputs(32, 128, C, 501, seed=9, holes=holes)
+        for v in _asp_inputs(
+            B, A, C, T, seed=9, holes=kind == "holes", last_only=kind == "last_only"
+        )
     )
     x, a, w = x.to(dtype), a.to(dtype), w.to(dtype)
+    if kind == "bf16_mask_bias":  # as the model passes them
+        b, mask = b.to(dtype), mask.to(dtype)
+        rows = torch.empty((B, A, -(-T // 8) * 8), dtype=dtype, device=cuda)[..., :T]
+        a = rows.copy_(a)
+    if kind == "odd_offset":
+        x, a = _at_odd_offset(x), _at_odd_offset(a)
+        assert x.data_ptr() % 4 == 2 and a.data_ptr() % 4 == 2
+    before = asp_cuda.asp_pool.launches
     mean, std = asp_cuda.asp_pool(x, a, w, b, mask)
+    assert asp_cuda.asp_pool.launches == before + 1
     want_mean, want_std = asp_cuda.asp_pool_plain(x, a, w, b, mask)
     # float32: reassociation only; bf16: one bf16 rounding step of the output
     tol = dict(mean=(1e-5, 1e-5), std=(1e-4, 1e-5)) if dtype == torch.float32 else dict(

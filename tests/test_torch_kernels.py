@@ -167,6 +167,34 @@ def test_asp_plain_any_channel_count_matches_jnp(C):
     np.testing.assert_allclose(std.numpy(), want_std, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_tanh_layout(dtype):
+    """bf16: rows padded to 8 frames, so each starts 16-byte aligned for the
+    bf16 kernel's copies; float32, or a call autograd records: contiguous.
+    The values are torch.tanh's either way."""
+    attn = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 5, 37)).astype(np.float32))
+    attn = attn.to(dtype)
+    got = asp_cuda.attention_tanh(attn)
+    assert torch.equal(got, torch.tanh(attn))
+    if dtype == torch.bfloat16:
+        assert got.stride() == (5 * 40, 40, 1)
+    else:
+        assert got.is_contiguous()
+    assert asp_cuda.attention_tanh(attn.clone().requires_grad_()).is_contiguous()
+
+
+def test_asp_plain_takes_padded_attention_rows():
+    """a_tanh in the padded rows attention_tanh gives, against the jnp oracle."""
+    x, a, w, b, mask = _asp_inputs(3, 16, 200, 61, seed=11)
+    rows = torch.empty((3, 16, 64))[..., :61].copy_(torch.from_numpy(a))
+    want_mean, want_std = _asp_jnp(*(jnp.asarray(v) for v in (x, a, w, b)), mask)
+    mean, std = asp_cuda.asp_pool(
+        torch.from_numpy(x), rows, *(torch.from_numpy(v) for v in (w, b, mask))
+    )
+    np.testing.assert_allclose(mean.numpy(), want_mean, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(std.numpy(), want_std, rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         pack_cuda.pack_frames(torch.zeros(3, 10), torch.zeros(2, 5, dtype=torch.bool))
