@@ -11,8 +11,10 @@ Phases, each a JSON line on stdout:
      the card, at the shapes the main path gives it (a 32-row stage-2 batch
      of 5 s windows), with its device time (ms; call_ms adds the host's
      enqueue of one call on an idle card), the plain version's time and
-     the least time the card could take for the same work; for the bf16
-     ASP kernel also its registers, spills and blocks an SM;
+     the least time the card could take for the same work; for the log-mel
+     and bf16 ASP kernels also their registers, spills and blocks an SM,
+     and for log-mel its distance from a float64 log-mel beside the plain
+     version's;
   3. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
      same weights on the card and on the CPU, in float32 with TF32 off:
      embeddings must agree and the turns must be equal;
@@ -49,7 +51,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 494.7e12, "bfloat16": 989e12}
 
 BATCH, WINDOW, FRAMES = 32, 80000, 293
 
@@ -101,11 +103,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> 
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
-    """(least ms, what bounds it): bytes over the memory rate vs operations
-    over the peak rate of the operands' type."""
+def bound_ms(nbytes: float, flops: dict):
+    """(least ms, what bounds it): bytes over the memory rate vs operations,
+    each part ({type: flops}) over the peak rate of its operands' type."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(f / PEAK_FLOPS[dtype] for dtype, f in flops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,7 +161,7 @@ def kernel_phase(torch):
     # flags (uint8) read and the lengths written
     kept = float(lens_p.sum())
     nbytes = 4.0 * (BATCH * WINDOW + kept) + BATCH * FRAMES + 4.0 * BATCH
-    b, by = bound_ms(nbytes, 0.0, "float32")
+    b, by = bound_ms(nbytes, {})
     results["pack_frames"] = dict(
         max_abs_err=err,
         tolerance="bit-exact",
@@ -186,15 +188,47 @@ def kernel_phase(torch):
         within(torch, out_k, out_p, 1e-4, 1e-3),
         f"log-mel kernel differs from its plain version (max abs {err})",
     )
+    # float32-accurate: no further from a float64 log-mel than the plain
+    # version, give or take 2e-3 dB
+    ref = frontend_cuda.log_mel_spectrogram_plain(
+        packed_k.double(),
+        torch.from_numpy(fe.dft_basis(cfg.n_fft, cfg.win_length)).to(dev),
+        torch.from_numpy(fe.mel_filterbank(cfg)).to(dev),
+        *args[3:],
+    )
+    err64 = float((out_k.double() - ref).abs().max())
+    err64_plain = float((out_p.double() - ref).abs().max())
+    check(
+        err64 <= err64_plain + 2e-3,
+        f"log-mel kernel is {err64} dB from float64, the plain version {err64_plain}",
+    )
     frames = out_k.shape[1]
     win, ncol = basis.shape
-    nf, n_mels = mel.shape
-    flops = 2.0 * BATCH * frames * (win * ncol + nf * n_mels)
-    nbytes = 4.0 * (BATCH * WINDOW + BATCH * frames * n_mels + basis.numel() + mel.numel())
-    b, by = bound_ms(nbytes, flops, "float32")
+    # the DFT product as three TF32 products (3xTF32); the mel projection
+    # over each band's own bins (the filterbank's nonzeros), in float32
+    flops = {
+        "tfloat32": 3 * 2.0 * BATCH * frames * win * ncol,
+        "float32": 2.0 * BATCH * frames * float((mel != 0).sum()),
+    }
+    nbytes = 4.0 * (BATCH * WINDOW + BATCH * frames * mel.shape[1] + basis.numel() + mel.numel())
+    b, by = bound_ms(nbytes, flops)
+    regs, spill = ptxas_report(_cuda_lib.build_log("frontend"), "log_mel_kernel")
+    blocks = ctypes.c_int(0)
+    occupancy = _cuda_lib.library("frontend").log_mel_blocks_per_sm
+    occupancy.restype = ctypes.c_int
+    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    ksteps = frontend_cuda.kernel_ksteps(win)
+    _cuda_lib.check(
+        "frontend", occupancy(cfg.hop_length, ksteps, mel.shape[1], ctypes.byref(blocks))
+    )
     results["log_mel"] = dict(
         max_abs_err=err,
-        tolerance="rtol 1e-4, atol 1e-3 (dB)",
+        tolerance="rtol 1e-4, atol 1e-3 (dB); float64 error <= plain's + 2e-3 dB",
+        f64_err=err64,
+        f64_err_plain=err64_plain,
+        registers=regs,
+        spill_bytes=spill,
+        blocks_per_sm=blocks.value,
         bound_bytes=nbytes,
         bound_flops=flops,
         ms=time_ms(torch, lambda: frontend_cuda.log_mel_spectrogram(*args)),
@@ -242,7 +276,7 @@ def kernel_phase(torch):
         size = x.element_size()
         nbytes = size * (valid * (C + A) + C * A + 2 * BATCH * C) + 4.0 * (C + BATCH * T)
         flops = 2.0 * C * A * valid
-        b, by = bound_ms(nbytes, flops, dtype)
+        b, by = bound_ms(nbytes, {dtype: flops})
         results[f"asp_pool_{dtype}"] = dict(
             max_abs_err=err,
             tolerance=f"mean rtol/atol {tol['mean']}, std rtol/atol {tol['std']}",

@@ -51,17 +51,98 @@ def test_pack_kernel_matches_plain(cuda, p_keep):
     assert torch.equal(got, want) and torch.equal(lens, want_lens)
 
 
+def _log_mel_signal(kind, rows, n, seed):
+    """normal(0, 1) (row 5 with a zero tail), the bench's 0.1-sine-plus-noise
+    clip, or an int16-quantized clip; (rows, n) float32."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        x = rng.normal(size=(rows, n))
+        if rows > 5:
+            x[5, 30000:] = 0.0
+        return x.astype(np.float32)
+    t = np.arange(rows * n) / 16000.0
+    if kind == "bench_clip":
+        x = 0.1 * np.sin(2 * np.pi * 220 * t) + 0.01 * rng.normal(size=t.shape)
+        return x.astype(np.float32).reshape(rows, n)
+    x = (
+        0.30 * np.sin(2 * np.pi * 220.0 * t)
+        + 0.20 * np.sin(2 * np.pi * 1100.0 * t * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t)))
+        + 0.05 * rng.standard_normal(t.shape)
+    )
+    q = np.clip(np.round(x * 20000.0), -32768, 32767).astype(np.int16)
+    return (q.astype(np.float32) / 32768.0).reshape(rows, n)
+
+
+# (signal, B, n): the main shape with a zero tail, the bench and int16 clips,
+# a partial last tile (n = 16000: 101 frames), n not a multiple of 4, one
+# row, and an all-zero row
+_LOG_MEL_CASES = [
+    ("normal", 32, 80000),
+    ("bench_clip", 32, 80000),
+    ("int16_clip", 32, 80000),
+    ("normal", 32, 16000),
+    ("normal", 32, 16001),
+    ("normal", 1, 80000),
+    ("zero_row", 4, 80000),
+]
+
+
 @pytest.mark.cuda
-def test_log_mel_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("kind,B,n", _LOG_MEL_CASES)
+def test_log_mel_kernel_matches_plain(cuda, kind, B, n):
     cfg = FrontendConfig()
-    x = torch.from_numpy(np.random.default_rng(8).normal(size=(32, 80000)).astype(np.float32))
-    x[5, 30000:] = 0.0
+    x = torch.from_numpy(_log_mel_signal("normal" if kind == "zero_row" else kind, B, n, seed=8))
+    if kind == "zero_row":
+        x[2] = 0.0
     basis, mel = tfe.constants(cfg, cuda)
     mult, db_off = tfe._db_terms(cfg)
     args = (x.to(cuda), basis, mel, cfg.hop_length, cfg.amin, mult, db_off)
+    before = frontend_cuda.log_mel_spectrogram.launches
     got = frontend_cuda.log_mel_spectrogram(*args)
-    want = frontend_cuda.log_mel_spectrogram_plain(*args)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert frontend_cuda.log_mel_spectrogram.launches == before + 1
+    # the plain version runs on the CPU: on an H100 the card's float32 GEMM
+    # loses more to cancellation in the quiet bins (0.0185 dB from float64 on
+    # the bench clip, against the CPU's 0.0053 and the kernel's 0.0023)
+    want = frontend_cuda.log_mel_spectrogram_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args)
+    )
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+    # float32-accurate: no further from a float64 log-mel than the plain
+    # version, give or take 2e-3 dB
+    basis64 = torch.from_numpy(tfe.dft_basis(cfg.n_fft, cfg.win_length)).to(cuda)
+    mel64 = torch.from_numpy(tfe.mel_filterbank(cfg)).to(cuda)
+    ref = frontend_cuda.log_mel_spectrogram_plain(
+        x.to(cuda).double(), basis64, mel64, cfg.hop_length, cfg.amin, mult, db_off
+    ).cpu()
+    err = float((got.cpu().double() - ref).abs().max())
+    assert err <= float((want.double() - ref).abs().max()) + 2e-3
+    if kind == "zero_row":  # silence reads the floor exactly
+        floor = np.float32(mult * np.log10(cfg.amin) - db_off)
+        assert bool((got[2] == float(floor)).all())
+
+
+@pytest.mark.cuda
+def test_log_mel_kernel_rejects_geometry(cuda):
+    """Geometries the kernel does not take raise; nothing falls back."""
+    cfg = FrontendConfig()
+    x = torch.zeros((2, 16000), device=cuda)
+    basis, mel = tfe.constants(cfg, cuda)
+    mult, db_off = tfe._db_terms(cfg)
+
+    def call(basis, mel, hop):
+        return frontend_cuda.log_mel_spectrogram(x, basis, mel, hop, cfg.amin, mult, db_off)
+
+    wide = torch.from_numpy(tfe.dft_basis(416, 416).astype(np.float32)).to(cuda)  # nf 209
+    with pytest.raises(ValueError):
+        call(wide, torch.zeros((209, 80), device=cuda), 160)
+    coarse = torch.from_numpy(tfe.mel_filterbank(FrontendConfig(n_mels=8)).astype(np.float32))
+    with pytest.raises(ValueError):  # bands wider than the table
+        call(basis, coarse.to(cuda), 160)
+    with pytest.raises(ValueError):  # hop not a multiple of 4
+        call(basis, mel, 162)
+    odd = torch.from_numpy(tfe.dft_basis(402, 402).astype(np.float32)).to(cuda)  # win 402
+    with pytest.raises(ValueError):
+        call(odd, torch.zeros((202, 80), device=cuda), 160)
 
 
 _F32, _BF16 = torch.float32, torch.bfloat16

@@ -121,6 +121,158 @@ def test_compute_features_matches_jax():
     )
 
 
+# The CUDA kernel's host-side tables and its 3xTF32 arithmetic, emulated in
+# numpy (the kernel itself runs only on the card: test_torch_cuda.py).
+
+
+def _rna_tf32(v):
+    """numpy cvt.rna.tf32.f32: round to 10 mantissa bits, ties away."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_split_of_basis():
+    cfg = FrontendConfig()
+    v = tfe.dft_basis(cfg.n_fft, cfg.win_length).astype(np.float32)
+    big, small = (t.numpy() for t in frontend_cuda.split_tf32(torch.from_numpy(v)))
+    for half in (big, small):
+        assert not (half.view(np.uint32) & np.uint32(0x1FFF)).any()
+    np.testing.assert_array_equal(big, _rna_tf32(v))
+    np.testing.assert_array_equal(small, _rna_tf32(v - big))
+    err = np.abs(big.astype(np.float64) + small - v)
+    assert (err <= 2.0**-21 * np.abs(v)).all()
+
+
+@pytest.mark.parametrize("win", [400, 396])
+def test_basis_tiles_map_back_to_dft_basis(win):
+    """Every entry of the kernel's basis layout from its definition: pass,
+    k step, big or small half, column group, k-group, column, k."""
+    cfg = FrontendConfig()
+    basis = tfe.dft_basis(cfg.n_fft, cfg.win_length).astype(np.float32)[:win]
+    nf = basis.shape[1] // 2
+    tiles = frontend_cuda.basis_tiles(torch.from_numpy(basis)).numpy()
+    steps = frontend_cuda.kernel_ksteps(win)
+    assert steps == 50 and tiles.shape == (steps * 8 * 2 * 2 * frontend_cuda.KERNEL_BINS,)
+    padded = np.zeros((8 * steps, basis.shape[1]), np.float32)
+    padded[:win] = basis  # zero rows pad K
+    at, pair0 = 0, 0
+    for pairs in frontend_cuda.PASS_PAIRS:
+        n = 16 * pairs
+        s, half, cg, kg, row, kk = np.meshgrid(
+            np.arange(steps), np.arange(2), np.arange(n // 8), np.arange(2), np.arange(8),
+            np.arange(4), indexing="ij",
+        )
+        c = 8 * cg + row  # the pass's column: pair, then real (8) and imaginary (8)
+        q = 8 * (pair0 + c // 16) + c % 8
+        v = np.where(q < nf, padded[8 * s + 4 * kg + kk, np.minimum(q, nf - 1) + nf * (c // 8 % 2)], 0)
+        big = _rna_tf32(v)
+        want = np.where(half == 0, big, _rna_tf32(v - big))
+        np.testing.assert_array_equal(tiles[at : at + want.size], want.reshape(-1))
+        at, pair0 = at + want.size, pair0 + pairs
+    assert at == tiles.size and pair0 == frontend_cuda.KERNEL_BINS // 8
+
+
+def test_band_table_covers_filterbank():
+    cfg = FrontendConfig()
+    mel = tfe.mel_filterbank(cfg).astype(np.float32)
+    bins, weights = (t.numpy() for t in frontend_cuda.band_table(torch.from_numpy(mel)))
+    nf, n_mels = mel.shape
+    dense = np.zeros_like(mel)
+    for m in range(n_mels):
+        first, count = bins[m]
+        assert 1 <= count <= frontend_cuda.BAND_WIDTH and first + count <= nf
+        dense[first : first + count, m] = weights[m, :count]
+        assert not weights[m, count:].any()
+    np.testing.assert_array_equal(dense, mel)  # every nonzero, in its place
+    assert int((mel != 0).sum()) == 387
+    # the banded sum (ascending, float32) is the dense product to rounding
+    power = np.random.default_rng(4).exponential(size=(50, nf)).astype(np.float32)
+    banded = np.zeros((50, n_mels), np.float32)
+    for m in range(n_mels):
+        first, count = bins[m]
+        for j in range(count):
+            banded[:, m] += power[:, first + j] * weights[m, j]
+    dense_fb = (torch.from_numpy(power) @ torch.from_numpy(mel)).numpy()
+    np.testing.assert_allclose(banded, dense_fb, rtol=2e-6, atol=0)
+
+
+def test_band_table_rejects_wide_bands():
+    mel = tfe.mel_filterbank(FrontendConfig(n_mels=8)).astype(np.float32)
+    with pytest.raises(ValueError):
+        frontend_cuda.band_table(torch.from_numpy(mel))
+
+
+def _log_mel_signal(kind, rows, n, seed):
+    """The three signals the kernel is held to: normal(0, 1) with a zero
+    tail, the bench's 0.1-sine-plus-noise clip, an int16-quantized clip."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal_zero_tail":
+        x = rng.normal(size=(rows, n))
+        x[rows // 2, 3 * n // 8 :] = 0.0
+        return x.astype(np.float32)
+    t = np.arange(rows * n) / 16000.0
+    if kind == "bench_clip":
+        x = 0.1 * np.sin(2 * np.pi * 220 * t) + 0.01 * rng.normal(size=t.shape)
+        return x.astype(np.float32).reshape(rows, n)
+    x = (
+        0.30 * np.sin(2 * np.pi * 220.0 * t)
+        + 0.20 * np.sin(2 * np.pi * 1100.0 * t * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t)))
+        + 0.05 * rng.standard_normal(t.shape)
+    )
+    q = np.clip(np.round(x * 20000.0), -32768, 32767).astype(np.int16)
+    return (q.astype(np.float32) / 32768.0).reshape(rows, n)
+
+
+def _frames(x, cfg):
+    hop, win = cfg.hop_length, cfg.win_length
+    frames = 1 + x.shape[1] // hop
+    xp = np.pad(x, ((0, 0), (win // 2, (frames - 1) * hop + win // 2 - x.shape[1])))
+    return np.lib.stride_tricks.sliding_window_view(xp, win, axis=1)[:, ::hop]
+
+
+@pytest.mark.parametrize("kind", ["normal_zero_tail", "bench_clip", "int16_clip"])
+def test_log_mel_3xtf32_is_float32_accurate(kind):
+    """3xTF32 as the kernel sums it (per k16, two k steps of 8 with the two
+    small terms and then the big one each, into a fresh float32 accumulator
+    that is then added to the running sum) against the plain float32 version
+    and a float64 log-mel; one TF32 product is not accurate enough."""
+    cfg = FrontendConfig()
+    x = _log_mel_signal(kind, 4, 80000, seed=10)
+    mult, db_off = tfe._db_terms(cfg)
+    basis64 = tfe.dft_basis(cfg.n_fft, cfg.win_length)
+    mel64 = tfe.mel_filterbank(cfg)
+    fr = _frames(x, cfg)
+
+    def log_mel(spec, mel):
+        nf = spec.shape[-1] // 2
+        fb = (spec[..., :nf] ** 2 + spec[..., nf:] ** 2) @ mel
+        return mult * np.log10(np.maximum(fb, cfg.amin)) - db_off
+
+    ref64 = log_mel(fr.astype(np.float64) @ basis64, mel64)
+    basis, mel = (v.astype(np.float32) for v in (basis64, mel64))
+    ab, bb = _rna_tf32(fr), _rna_tf32(basis)
+    a_s, b_s = _rna_tf32(fr - ab), _rna_tf32(basis - bb)
+    acc = np.zeros(fr.shape[:2] + basis.shape[1:], np.float32)
+    for k16 in range(0, basis.shape[0], 16):
+        step = np.zeros_like(acc)
+        for k in (k16, k16 + 8):
+            ks = slice(k, k + 8)
+            step += a_s[..., ks] @ bb[ks]
+            step += ab[..., ks] @ b_s[ks]
+            step += ab[..., ks] @ bb[ks]
+        acc += step
+    three = log_mel(acc, mel)
+    one = log_mel(ab @ bb, mel)
+    plain = frontend_cuda.log_mel_spectrogram_plain(
+        torch.from_numpy(x), torch.from_numpy(basis), torch.from_numpy(mel),
+        cfg.hop_length, cfg.amin, mult, db_off,
+    ).numpy()
+    np.testing.assert_allclose(three, plain, rtol=1e-4, atol=1e-3)
+    err_plain = np.abs(plain - ref64).max()
+    assert np.abs(three - ref64).max() <= err_plain + 2e-3
+    assert np.abs(one - ref64).max() > err_plain + 2e-3
+
+
 # ---------------------------------------------------------------------------
 # ASP tail (kernel 3)
 # ---------------------------------------------------------------------------
