@@ -11,21 +11,28 @@ Phases, each a JSON line on stdout:
      the card, at the shapes the main path gives it (a 32-row stage-2 batch
      of 5 s windows), with its device time (ms; call_ms adds the host's
      enqueue of one call on an idle card), the plain version's time and
-     the least time the card could take for the same work; for the log-mel
-     and bf16 ASP kernels also their registers, spills and blocks an SM,
-     and for log-mel its distance from a float64 log-mel beside the plain
-     version's;
+     the least time the card could take for the same work; for pack also
+     its time with the L2 cache flushed before each call, and the device
+     kernels one call runs with their run time under torch.profiler; for
+     pack, log-mel and bf16 ASP their registers and spills (log-mel and
+     bf16 ASP: blocks an SM), and for log-mel its distance from a float64
+     log-mel beside the plain version's;
   3. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
      same weights on the card and on the CPU, in float32 with TF32 off:
      embeddings must agree and the turns must be equal;
-  4. requests: the main path at full model width (default PyanNet and
+  4. default_numerics: the same pipeline with the in-repo gate checkpoint
+     at the port's defaults on the card, against the CPU in float32
+     (embeddings within abs 0.02) and at the defaults (equal turns);
+  5. requests: the main path at full model width (default PyanNet and
      ECAPA-TDNN, default config: bf16 ECAPA trunk, f16 transfer), seeded
-     random weights, three requests on a synthetic 59 s clip; every kernel
-     must launch 12 times per request (128 padded chunks x 3 speakers / 32);
-     one more request with the ASP masks watched (the share of frames
-     valid and walked); then one more under torch.profiler (device time by
-     kernel, the port's own kernels by name);
-  5. the kernel summary line, the nvidia-smi line, and last
+     random weights, three requests on a synthetic 59 s clip; pack, log-mel
+     and the bf16 ASP kernel must launch 12 times per request (128 padded
+     chunks x 3 speakers / 32), the float32 ASP kernel never; one more
+     request with the pack and ASP inputs watched (pack_rows: kept share,
+     segments a row, empty rows; asp_frames: the share of frames valid and
+     walked); then one more under torch.profiler (device time by kernel,
+     the port's own kernels by name);
+  6. the kernel summary line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -81,12 +88,17 @@ def nvidia_smi_line() -> str:
 SLEEP_CYCLES = 4_000_000
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
+def time_ms(
+    torch, fn, reps: int = 20, warmup: int = 3, queued: bool = True, flush=None
+) -> float:
     """Median of ``reps`` CUDA-event timings of one fn() call each, after
-    ``warmup`` calls (no L2 flush between calls). ``queued``: the events and
-    the call are enqueued behind a device spin, so they time the device
-    alone; else the device is idle when the start event runs, and the time
-    includes the host's enqueue of the call (wrapper and launch)."""
+    ``warmup`` calls. ``queued``: the events and the call are enqueued behind
+    a device spin, so they time the device alone; else the device is idle
+    when the start event runs, and the time includes the host's enqueue of
+    the call (wrapper and launch). ``flush``: a device buffer larger than the
+    L2 cache, read before each timed call (outside the timing), so the call
+    finds its inputs in device memory and the L2 full of clean lines; else
+    nothing is flushed."""
     for _ in range(warmup):
         fn()
     times = []
@@ -95,6 +107,8 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> 
         end = torch.cuda.Event(enable_timing=True)
         if queued:
             torch.cuda._sleep(SLEEP_CYCLES)
+        if flush is not None:
+            flush.sum()
         start.record()
         fn()
         end.record()
@@ -132,6 +146,53 @@ def ptxas_report(log: str, kernel: str):
     return None, None
 
 
+def pack_inputs(torch, rng, dev):
+    """The kernel phase's pack inputs: 32 windows of normal noise and keep
+    masks of 8-frame speech runs, kept with probability 0, 0.3, 0.7, 1 by
+    row (49.5 % of the samples at seed 0)."""
+    wav = torch.from_numpy(rng.normal(size=(BATCH, WINDOW)).astype(np.float32)).to(dev)
+    p_keep = np.array([0.0, 0.3, 0.7, 1.0] * (BATCH // 4))[:, None]
+    runs = np.repeat(rng.uniform(size=(BATCH, FRAMES // 8 + 1)), 8, axis=1)[:, :FRAMES]
+    return wav, torch.from_numpy(runs < p_keep).to(dev)
+
+
+def segments_per_row(torch, keep):
+    """Maximal runs of kept frames in each row of a (rows, F) bool mask."""
+    starts = keep.clone()
+    starts[:, 1:] &= ~keep[:, :-1]
+    return starts.sum(dim=1)
+
+
+def pack_bound_bytes(batch: int, n: int, frames: int, kept: float) -> float:
+    """Traffic the pack needs: the kept samples read, every output written,
+    the keep flags (one byte each) read and the lengths written."""
+    return 4.0 * (batch * n + kept) + batch * frames + 4.0 * batch
+
+
+def l2_flush_buffer(torch):
+    """A device buffer of twice the L2 cache, for ``time_ms(flush=...)``."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return torch.zeros(2 * l2 // 4, dtype=torch.float32, device="cuda")
+
+
+def profile_call(torch, fn, reps: int = 10):
+    """(device kernels and copies a fn() call runs, their device ms a call),
+    from ``reps`` warm calls under torch.profiler: the kernels' own run time,
+    without the launch and event latency that a CUDA-event timing includes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in device) / 1e3
+    return len(device) / reps, busy / reps
+
+
 def kernel_phase(torch):
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import FrontendConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import (
@@ -145,34 +206,40 @@ def kernel_phase(torch):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     results = {}
+    flush = l2_flush_buffer(torch)
 
     # --- pack: 32 windows, keep masks of speech runs (p_keep cycling) ------
-    wav = torch.from_numpy(rng.normal(size=(BATCH, WINDOW)).astype(np.float32)).to(dev)
-    p_keep = np.array([0.0, 0.3, 0.7, 1.0] * (BATCH // 4))[:, None]
-    runs = np.repeat(rng.uniform(size=(BATCH, FRAMES // 8 + 1)), 8, axis=1)[:, :FRAMES]
-    keep = torch.from_numpy(runs < p_keep).to(dev)
+    wav, keep = pack_inputs(torch, rng, dev)
     packed_k, lens_k = pack_cuda.pack_frames(wav, keep)
     packed_p, lens_p = pack_cuda.pack_frames_plain(wav, keep)
     torch.cuda.synchronize()
     exact = torch.equal(packed_k, packed_p) and torch.equal(lens_k, lens_p)
     err = float((packed_k - packed_p).abs().max())
     check(exact, f"pack kernel differs from its plain version (max abs {err})")
-    # needed traffic: the kept samples read, every output written, the keep
-    # flags (uint8) read and the lengths written
+    # a bool keep goes to the kernel as its bytes: one device kernel a call
+    per_call, profiled_ms = profile_call(torch, lambda: pack_cuda.pack_frames(wav, keep))
+    check(per_call == 1, f"pack_frames ran {per_call} device kernels for a bool keep")
     kept = float(lens_p.sum())
-    nbytes = 4.0 * (BATCH * WINDOW + kept) + BATCH * FRAMES + 4.0 * BATCH
+    nbytes = pack_bound_bytes(BATCH, WINDOW, FRAMES, kept)
     b, by = bound_ms(nbytes, {})
+    regs, spill = ptxas_report(_cuda_lib.build_log("pack"), "pack_kernelILb1E")
     results["pack_frames"] = dict(
         max_abs_err=err,
         tolerance="bit-exact",
         kept_share=kept / (BATCH * WINDOW),
+        segments_per_row=float(segments_per_row(torch, keep).float().mean()),
+        device_kernels_per_call=per_call,
+        registers=regs,
+        spill_bytes=spill,
         bound_bytes=nbytes,
         ms=time_ms(torch, lambda: pack_cuda.pack_frames(wav, keep)),
+        ms_l2_flushed=time_ms(torch, lambda: pack_cuda.pack_frames(wav, keep), flush=flush),
+        profiled_ms=profiled_ms,
         call_ms=time_ms(torch, lambda: pack_cuda.pack_frames(wav, keep), queued=False),
         plain_ms=time_ms(torch, lambda: pack_cuda.pack_frames_plain(wav, keep)),
         bound_ms=b,
         bound_by=by,
-        shapes="wav (32, 80000) f32, keep (32, 293) -> (32, 80000) f32, (32,) i32",
+        shapes="wav (32, 80000) f32, keep (32, 293) bool -> (32, 80000) f32, (32,) i32",
     )
 
     # --- log-mel on the packed signals -------------------------------------
@@ -335,7 +402,13 @@ def same_turns(a, b) -> bool:
     return len(set(mapping.values())) == len(mapping)
 
 
-def parity_phase(torch):
+def run_small5s(device: str, float32: bool, params=None):
+    """One request of the small5s test configuration (the real 5 s / 0.5 s
+    recipe, small model widths) on the 12.3 s int16 clip: float32 compute
+    and transfer at precision "highest" (TF32 off), or the defaults (bf16
+    ECAPA trunk, f16 transfer, precision "default"). ``params``: a
+    checkpoint tree, else seeded random weights. Returns its embeddings,
+    too_short flags, segmentations (on the CPU) and turns."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ecapa import EcapaConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import PyanNetConfig
@@ -344,37 +417,37 @@ def parity_phase(torch):
         precision_scope,
     )
 
-    # the small5s test configuration: real recipe, small model widths
-    small_pyannet = PyanNetConfig(
-        num_filters=32, conv_channels=16, lstm_hidden=16, lstm_layers=2, linear_hidden=16
-    )
-    small_ecapa = EcapaConfig(
-        channels=(64, 64, 64, 64, 128), attention_channels=16, se_channels=16, emb_dim=32
-    )
-    cfg = dataclasses.replace(
-        DEFAULT_CONFIG, chunk_bucket=4, compute_dtype="float32", transfer_dtype="float32"
+    cfg = dataclasses.replace(DEFAULT_CONFIG, chunk_bucket=4)
+    if float32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32", transfer_dtype="float32")
+    pipe = SpeakerDiarizationPipeline(
+        cfg,
+        params=params,
+        seed=0,
+        seg_batch=4,
+        emb_batch=4,
+        precision="highest" if float32 else "default",
+        pyannet_cfg=PyanNetConfig(
+            num_filters=32, conv_channels=16, lstm_hidden=16, lstm_layers=2, linear_hidden=16
+        ),
+        ecapa_cfg=EcapaConfig(
+            channels=(64, 64, 64, 64, 128), attention_channels=16, se_channels=16, emb_dim=32
+        ),
+        device=device,
     )
     clip = synth_clip(12.3, seed=977, quantize=True)
-    out = {}
-    for device in ("cuda", "cpu"):
-        pipe = SpeakerDiarizationPipeline(
-            cfg,
-            seed=0,
-            seg_batch=4,
-            emb_batch=4,
-            precision="highest",
-            pyannet_cfg=small_pyannet,
-            ecapa_cfg=small_ecapa,
-            device=device,
-        )
-        with precision_scope("highest"):
-            pending = pipe._dispatch(clip)
-        out[device] = dict(
-            emb=pending["emb"].float().cpu(),
-            too_short=pending["too_short"].cpu(),
-            segs=pending["segmentations"].cpu(),
-            turns=turns_of(pipe(clip)),
-        )
+    with precision_scope(pipe.precision):
+        pending = pipe._dispatch(clip)
+    return dict(
+        emb=pending["emb"].float().cpu(),
+        too_short=pending["too_short"].cpu(),
+        segs=pending["segmentations"].cpu(),
+        turns=turns_of(pipe(clip)),
+    )
+
+
+def parity_phase(torch):
+    out = {device: run_small5s(device, float32=True) for device in ("cuda", "cpu")}
     g, c = out["cuda"], out["cpu"]
     valid = ~c["too_short"]
     emb_err = float((g["emb"][valid] - c["emb"][valid]).abs().max())
@@ -398,7 +471,59 @@ def parity_phase(torch):
     )
 
 
+# the reference envelope: embedding abs 0.02 against the float32 run
+ENVELOPE = 0.02
+
+
+def default_numerics_phase(torch):
+    """small5s with the in-repo gate checkpoint at the port's defaults on the
+    card (stage 1 runs TF32 cuDNN kernels there), against the port on the
+    CPU in float32 (embeddings within the envelope) and at the defaults
+    (equal turns)."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import load_checkpoint
+
+    params = load_checkpoint(os.path.join(HERE, "tests", "goldens", "gate_ckpt"))
+    card = run_small5s("cuda", float32=False, params=params)
+    cpu_default = run_small5s("cpu", float32=False, params=params)
+    cpu_f32 = run_small5s("cpu", float32=True, params=params)
+    check(
+        torch.equal(card["too_short"], cpu_f32["too_short"])
+        and torch.equal(cpu_default["too_short"], cpu_f32["too_short"]),
+        "default numerics: too_short differs",
+    )
+    valid = ~cpu_f32["too_short"]
+    check(bool(valid.any()), "default numerics: no embedding rows")
+    err_f32 = float((card["emb"][valid] - cpu_f32["emb"][valid]).abs().max())
+    err_default = float((card["emb"][valid] - cpu_default["emb"][valid]).abs().max())
+    check(
+        err_f32 <= ENVELOPE,
+        f"default numerics: embeddings {err_f32} from the CPU float32 run (> {ENVELOPE})",
+    )
+    check(
+        same_turns(card["turns"], cpu_default["turns"]),
+        "default numerics: turns differ from the CPU default run's",
+    )
+    emit(
+        {
+            "default_numerics": "small5s gate checkpoint, cuda defaults vs cpu",
+            "clip_s": 12.3,
+            "emb_max_abs_err_vs_cpu_float32": err_f32,
+            "envelope": ENVELOPE,
+            "emb_max_abs_err_vs_cpu_default": err_default,
+            "seg_max_abs_err_vs_cpu_float32": float(
+                (card["segs"] - cpu_f32["segs"]).abs().max()
+            ),
+            "embedding_rows": int(valid.sum()),
+            "turns": len(card["turns"]),
+            "turns_equal_cpu_default": True,
+        }
+    )
+
+
 def main_path_phase(torch, counters):
+    """``counters``: name -> (wrapper, attribute holding its kernel's launch
+    count, launches a request must make or None for one per stage-2
+    batch)."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
         SpeakerDiarizationPipeline,
@@ -408,20 +533,28 @@ def main_path_phase(torch, counters):
     seg = pipe.config.segmentation
     clip = synth_clip(59.0, seed=0, quantize=False)
     padded = pipe.chunk_lattice(chunk_count(len(clip), seg.window_size, seg.step_size))
-    expected = padded * seg.num_speakers // pipe.emb_batch
-    for fn in counters.values():
-        fn.launches = 0
+    batches = padded * seg.num_speakers // pipe.emb_batch
+    expected = {
+        name: batches if per_request is None else per_request
+        for name, (_, _, per_request) in counters.items()
+    }
+
+    def count():
+        return {name: getattr(fn, attr) for name, (fn, attr, _) in counters.items()}
+
+    for fn, attr, _ in counters.values():
+        setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
     for i in range(3):
-        before = {name: fn.launches for name, fn in counters.items()}
+        before = count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         annotation = pipe(clip)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        launched = {name: n - before[name] for name, n in count().items()}
         check(
-            all(n == expected for n in launched.values()),
+            launched == expected,
             f"main path: launches {launched}, expected {expected} per request",
         )
         t = pipe.timings
@@ -445,10 +578,10 @@ def main_path_phase(torch, counters):
                 "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             }
         )
-    totals = {name: fn.launches for name, fn in counters.items()}
+    totals = count()
     # outputs: finite embeddings of the expected shape (one more, uncounted
-    # run), and the ASP masks that run passes
-    pending = asp_frame_shares(torch, pipe, clip)
+    # run), and the pack and ASP inputs that run passes
+    pending = watched_request(torch, pipe, clip)
     emb = pending["emb"].float()
     rows = pending["num_chunks"] * seg.num_speakers
     check(
@@ -460,27 +593,57 @@ def main_path_phase(torch, counters):
         "main path: non-finite embeddings",
     )
     profile_request(torch, pipe, clip)
-    return totals, expected
+    return totals, batches
 
 
-def asp_frame_shares(torch, pipe, clip):
-    """Dispatch one request with the ASP call watched; emit the share of its
-    frames that are valid and the share the bf16 kernel walks (each row up to
-    its last valid frame, in 64-frame tiles). Returns the pending outputs."""
+def watched_request(torch, pipe, clip):
+    """Dispatch one request with the pack and ASP calls watched. Emits the
+    pack rows' kept share, segments and empty rows (and the byte bound of a
+    pack call at that share), then the share of the ASP frames that are
+    valid and the share the bf16 kernel walks (each row up to its last valid
+    frame, in 64-frame tiles). Returns the pending outputs."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import masks as mk
 
-    real, masks = ecapa.asp_pool, []
+    real_asp, real_pack, masks, keeps, lens = ecapa.asp_pool, mk.pack_frames, [], [], []
 
-    def watched(x, a_tanh, w, bias, mask, eps=1e-12):
+    def watched_asp(x, a_tanh, w, bias, mask, eps=1e-12):
         masks.append(mask > 0)
-        return real(x, a_tanh, w, bias, mask, eps)
+        return real_asp(x, a_tanh, w, bias, mask, eps)
 
-    ecapa.asp_pool = watched
+    def watched_pack(waveforms, keep):
+        packed, row_lens = real_pack(waveforms, keep)
+        keeps.append(keep != 0)
+        lens.append(row_lens)
+        return packed, row_lens
+
+    ecapa.asp_pool, mk.pack_frames = watched_asp, watched_pack
     try:
         pending = pipe._dispatch(clip)
         torch.cuda.synchronize()
     finally:
-        ecapa.asp_pool = real
+        ecapa.asp_pool, mk.pack_frames = real_asp, real_pack
+    keep, row_lens = torch.cat(keeps), torch.cat(lens)
+    rows, frames = keep.shape
+    n = pipe.config.segmentation.window_size
+    kept = float(row_lens.sum())
+    segments = segments_per_row(torch, keep)
+    batch = rows // len(keeps)
+    bound, _ = bound_ms(pack_bound_bytes(batch, n, frames, kept / len(keeps)), {})
+    emit(
+        {
+            "pack_rows": "main path, one 59 s request (uncounted run)",
+            "calls": len(keeps),
+            "rows": rows,
+            "frames": frames,
+            "samples": n,
+            "kept_share": kept / (rows * n),
+            "segments_per_row": float(segments.float().mean()),
+            "segments_per_row_max": int(segments.max()),
+            "empty_rows": int((row_lens == 0).sum()),
+            "bound_ms_per_call": bound,
+        }
+    )
     valid = torch.cat(masks)
     rows, T = valid.shape
     ends = walk_ends(torch, valid)
@@ -593,10 +756,13 @@ def main() -> int:
     )
     kernels = kernel_phase(torch)
     parity_phase(torch)
+    default_numerics_phase(torch)
     counters = {
-        "pack_frames": pack_cuda.pack_frames,
-        "log_mel": frontend_cuda.log_mel_spectrogram,
-        "asp_pool": asp_cuda.asp_pool,
+        "pack_frames": (pack_cuda.pack_frames, "launches", None),
+        "log_mel": (frontend_cuda.log_mel_spectrogram, "launches", None),
+        "asp_pool": (asp_cuda.asp_pool, "bfloat16_launches", None),
+        # the float32 kernel serves precision="highest": none on the main path
+        "asp_pool_float32": (asp_cuda.asp_pool, "float32_launches", 0),
     }
     totals, expected = main_path_phase(torch, counters)
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
@@ -605,6 +771,12 @@ def main() -> int:
         ("pack_frames", "pack_frames", f"{pkg}/csrc/pack.cu", f"{tpu}/ops/pack_pallas.py:93"),
         ("log_mel", "log_mel", f"{pkg}/csrc/frontend.cu", f"{tpu}/ops/frontend_pallas.py:67"),
         ("asp_pool", "asp_pool_bfloat16", f"{pkg}/csrc/asp.cu", f"{tpu}/ops/asp_pallas.py:71"),
+        (
+            "asp_pool_float32",
+            "asp_pool_float32",
+            f"{pkg}/csrc/asp.cu",
+            f"{tpu}/ops/asp_pallas.py:71",
+        ),
     ]
     summary = []
     for name, key, source, replaces in rows:

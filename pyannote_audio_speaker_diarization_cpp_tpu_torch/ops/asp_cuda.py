@@ -174,8 +174,12 @@ def asp_pool(
     with torch.cuda.device(x.device):
         err = fn(*args, mean.data_ptr(), std.data_ptr(), B, C, A, T, eps, _cuda_lib.stream_of(x))
     _cuda_lib.check("asp", err)
-    asp_pool.launches += 1
+    if x.dtype == torch.float32:
+        asp_pool.float32_launches += 1
+    else:
+        asp_pool.bfloat16_launches += 1
     return mean, std
 
 
-asp_pool.launches = 0
+# one launch count for each of the two kernels
+asp_pool.float32_launches = asp_pool.bfloat16_launches = 0

@@ -19,6 +19,9 @@ import torch
 
 from . import _cuda_lib
 
+# the kernel computes frame starts ceil(f * n / F) in 32 bits
+MAX_FRAME_SAMPLES = 2**31
+
 
 def frame_tables(num_frames: int, num_samples: int, device=None):
     """(run_len, orig_start) int64 tensors: the samples each frame owns
@@ -56,16 +59,25 @@ def pack_frames_plain(
 def pack_frames(
     waveforms: torch.Tensor, keep: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, n) float32 waveforms + (B, F) keep flags (bool or 0/1) ->
-    (packed (B, n) float32, lens (B,) int32).
+    """(B, n) float32 waveforms + (B, F) keep flags (bool, or any dtype where
+    nonzero means kept) -> (packed (B, n) float32, lens (B,) int32).
+    Raises unless 0 < F <= n and F * n < 2**31.
 
-    On a CUDA tensor this launches ``csrc/pack.cu``; on a CPU tensor it runs
+    On a CUDA tensor this launches ``csrc/pack.cu`` (a bool keep goes to it
+    as its bytes, with no conversion); on a CPU tensor it runs
     ``pack_frames_plain``.
     """
     if waveforms.dim() != 2 or keep.dim() != 2 or keep.shape[0] != waveforms.shape[0]:
         raise ValueError(
             f"pack_frames wants (B, n) waveforms and (B, F) keep flags, got "
             f"{tuple(waveforms.shape)} and {tuple(keep.shape)}"
+        )
+    batch, n = waveforms.shape
+    num_frames = keep.shape[1]
+    if not 0 < num_frames <= n or num_frames * n >= MAX_FRAME_SAMPLES:
+        raise ValueError(
+            f"pack_frames: {num_frames} frames over {n} samples is unsupported "
+            f"(the kernel wants 0 < F <= n and F * n < 2**31)"
         )
     if waveforms.device.type == "cpu":
         return pack_frames_plain(waveforms, keep)
@@ -75,30 +87,32 @@ def pack_frames(
         )
     if waveforms.dtype != torch.float32 or not waveforms.is_contiguous():
         raise ValueError("pack_frames: waveforms must be contiguous float32")
-    batch, n = waveforms.shape
-    num_frames = keep.shape[1]
     lib = _cuda_lib.library("pack")
-    if num_frames > lib.pack_max_frames() or num_frames > n:
+    if num_frames > lib.pack_max_frames() or batch > 65535:
         raise ValueError(
-            f"pack_frames: {num_frames} frames over {n} samples is unsupported"
+            f"pack_frames: the kernel takes at most {lib.pack_max_frames()} frames "
+            f"and 65535 rows, got {num_frames} and {batch}"
         )
-    keep_u8 = (keep != 0).to(torch.uint8).contiguous()
+    # a bool tensor is stored as 0/1 bytes: the kernel reads it as it is
+    flags = keep if keep.dtype == torch.bool else keep != 0
+    flags = flags.contiguous().view(torch.uint8)
     packed = torch.empty_like(waveforms)
     lens = torch.empty(batch, dtype=torch.int32, device=waveforms.device)
     if batch == 0:
         return packed, lens
     fn = lib.pack_frames_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     with torch.cuda.device(waveforms.device):
         err = fn(
             waveforms.data_ptr(),
-            keep_u8.data_ptr(),
+            flags.data_ptr(),
             packed.data_ptr(),
             lens.data_ptr(),
             batch,
             n,
             num_frames,
+            int(n % 4 == 0),
             _cuda_lib.stream_of(waveforms),
         )
     _cuda_lib.check("pack", err)

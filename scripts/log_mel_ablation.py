@@ -100,7 +100,7 @@ def main() -> int:
         print("log_mel_ablation: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import BATCH, FRAMES, WINDOW, time_ms
+    from chip_smoke import BATCH, WINDOW, pack_inputs, time_ms
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import FrontendConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import frontend as fe
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import frontend_cuda, pack_cuda
@@ -113,11 +113,7 @@ def main() -> int:
 
     # the inputs of chip_smoke.py's log-mel phase: its packed windows
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    wav = torch.from_numpy(rng.normal(size=(BATCH, WINDOW)).astype(np.float32)).to(dev)
-    p_keep = np.array([0.0, 0.3, 0.7, 1.0] * (BATCH // 4))[:, None]
-    runs = np.repeat(rng.uniform(size=(BATCH, FRAMES // 8 + 1)), 8, axis=1)[:, :FRAMES]
-    x, _ = pack_cuda.pack_frames_plain(wav, torch.from_numpy(runs < p_keep).to(dev))
+    x, _ = pack_cuda.pack_frames_plain(*pack_inputs(torch, np.random.default_rng(0), dev))
     cfg = FrontendConfig()
     basis, mel = fe.constants(cfg, dev)
     mult, db_off = fe._db_terms(cfg)

@@ -40,13 +40,61 @@ def _asp_inputs(B, A, C, T, seed, holes=False, last_only=False):
     return x, a, w, b, mask
 
 
+def _pack_keep(kind, B, F, rng):
+    """(B, F) keep flags: random at a kept share, or one of the edges."""
+    if kind.startswith("p"):
+        return rng.uniform(size=(B, F)) < float(kind[1:])
+    f = np.arange(F)[None, :].repeat(B, 0)
+    if kind == "alternate":  # the most segments: (F + 1) // 2
+        return f % 2 == 0
+    if kind == "last_only":
+        return f == F - 1
+    return np.full((B, F), kind == "all")
+
+
+# (keep kind, flag dtype, B, n, F): random shares at the main shape, then all
+# and none kept, alternate frames, only the last frame, bool / float / int
+# flags, a short window, n % 4 != 0 (one sample a step), one row, no rows
+_PACK_CASES = [(f"p{p}", "bool", 32, 80000, 293) for p in (0.0, 0.3, 0.7, 1.0)] + [
+    ("all", "bool", 32, 80000, 293),
+    ("none", "bool", 32, 80000, 293),
+    ("alternate", "bool", 32, 80000, 293),
+    ("last_only", "bool", 32, 80000, 293),
+    ("p0.5", "float32", 32, 80000, 293),
+    ("p0.5", "int32", 8, 80000, 293),
+    ("p0.5", "bool", 32, 16000, 56),
+    ("alternate", "bool", 8, 12345, 43),
+    ("p0.5", "bool", 8, 12345, 43),
+    ("p0.5", "bool", 1, 80000, 293),
+    ("p0.5", "bool", 0, 80000, 293),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p_keep", [0.0, 0.3, 0.7, 1.0])
-def test_pack_kernel_matches_plain(cuda, p_keep):
+@pytest.mark.parametrize("kind,flag_dtype,B,n,F", _PACK_CASES)
+def test_pack_kernel_matches_plain(cuda, kind, flag_dtype, B, n, F):
     rng = np.random.default_rng(7)
-    wav = torch.from_numpy(rng.normal(size=(32, 80000)).astype(np.float32)).to(cuda)
-    keep = torch.from_numpy(rng.uniform(size=(32, 293)) < p_keep).to(cuda)
+    wav = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).to(cuda)
+    keep = torch.from_numpy(_pack_keep(kind, B, F, rng)).to(cuda, getattr(torch, flag_dtype))
+    before = pack_cuda.pack_frames.launches
     got, lens = pack_cuda.pack_frames(wav, keep)
+    assert pack_cuda.pack_frames.launches == before + (B > 0)
+    want, want_lens = pack_cuda.pack_frames_plain(wav, keep)
+    assert torch.equal(got, want) and torch.equal(lens, want_lens)
+
+
+@pytest.mark.cuda
+def test_pack_kernel_unaligned_rows(cuda):
+    """Waveforms that start 4 bytes past 16: the 16-byte route stores whole
+    quads but reads its sources by 4-byte loads, so it stays bit-exact."""
+    rng = np.random.default_rng(12)
+    wav = torch.from_numpy(rng.normal(size=(4, 16000)).astype(np.float32)).to(cuda)
+    flat = torch.empty(wav.numel() + 1, device=cuda)
+    flat[1:] = wav.reshape(-1)
+    shifted = flat[1:].view(wav.shape)
+    assert shifted.data_ptr() % 16 == 4
+    keep = torch.from_numpy(_pack_keep("p0.5", 4, 56, rng)).to(cuda)
+    got, lens = pack_cuda.pack_frames(shifted, keep)
     want, want_lens = pack_cuda.pack_frames_plain(wav, keep)
     assert torch.equal(got, want) and torch.equal(lens, want_lens)
 
@@ -193,9 +241,10 @@ def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
     if kind == "odd_offset":
         x, a = _at_odd_offset(x), _at_odd_offset(a)
         assert x.data_ptr() % 4 == 2 and a.data_ptr() % 4 == 2
-    before = asp_cuda.asp_pool.launches
+    counter = "float32_launches" if dtype == _F32 else "bfloat16_launches"
+    before = getattr(asp_cuda.asp_pool, counter)
     mean, std = asp_cuda.asp_pool(x, a, w, b, mask)
-    assert asp_cuda.asp_pool.launches == before + 1
+    assert getattr(asp_cuda.asp_pool, counter) == before + 1
     want_mean, want_std = asp_cuda.asp_pool_plain(x, a, w, b, mask)
     # float32: reassociation only; bf16: one bf16 rounding step of the output
     tol = dict(mean=(1e-5, 1e-5), std=(1e-4, 1e-5)) if dtype == torch.float32 else dict(

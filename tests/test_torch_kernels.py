@@ -75,6 +75,183 @@ def test_frame_tables_match_pallas_tables():
         np.testing.assert_array_equal(orig_start.numpy(), want_start)
 
 
+# The CUDA pack kernel's segment table and its quad copy, emulated in numpy
+# step for step (the kernel itself runs only on the card: test_torch_cuda.py).
+# Its geometry (csrc/pack.cu): 256 threads, 4 quads a thread, 4096-sample
+# tiles; one sample a step where n % 4 != 0.
+_PACK_THREADS, _PACK_QUADS = 256, 4
+_PACK_TILE = _PACK_THREADS * _PACK_QUADS * 4
+
+
+def _frame_starts32(F, n):
+    """The kernel's frame starts ceil(f * n / F), f = 0..F, in unsigned
+    32-bit arithmetic (numpy wraps uint32 products as the card does)."""
+    f = np.arange(F + 1, dtype=np.uint32)
+    return ((f * np.uint32(n) + np.uint32(F - 1)) // np.uint32(F)).astype(np.int64)
+
+
+def _kernel_segment_table(keep_row, n):
+    """(dst (nseg + 1,), delta (nseg,)) as one block builds it: each thread
+    counts the segments that start in its frames and their kept samples, an
+    exclusive scan over the threads places them, and each thread writes its
+    segments; dst[nseg] = lens."""
+    F = keep_row.shape[0]
+    per = -(-F // _PACK_THREADS)
+    start = _frame_starts32(F, n)
+
+    def frames(t):
+        f0 = min(t * per, F)
+        return f0, min(f0 + per, F), f0 > 0 and f0 < F and bool(keep_row[f0 - 1])
+
+    counts = np.zeros((_PACK_THREADS, 2), np.int64)  # (segments, kept) a thread
+    for t in range(_PACK_THREADS):
+        f0, f1, prev = frames(t)
+        for f in range(f0, f1):
+            if keep_row[f]:
+                counts[t] += (not prev, start[f + 1] - start[f])
+            prev = bool(keep_row[f])
+    before = np.cumsum(counts, axis=0) - counts  # the block-wide scan
+    nseg, length = counts.sum(axis=0)
+    dst = np.zeros(nseg + 1, np.int64)
+    delta = np.zeros(nseg, np.int64)
+    for t in range(_PACK_THREADS):
+        (f0, f1, prev), (s, pos) = frames(t), before[t]
+        for f in range(f0, f1):
+            if keep_row[f]:
+                if not prev:
+                    dst[s], delta[s] = pos, start[f] - pos
+                    s += 1
+                pos += start[f + 1] - start[f]
+            prev = bool(keep_row[f])
+    dst[nseg] = length
+    return dst, delta
+
+
+def _find_segment(dst, s, nseg, j):
+    hi = nseg - 1
+    while s < hi:
+        mid = (s + hi + 1) >> 1
+        if dst[mid] <= j:
+            s = mid
+        else:
+            hi = mid - 1
+    return s
+
+
+def _kernel_pack_row(wrow, keep_row):
+    """One row as the kernel's blocks write it: per thread, its quads in
+    order, each from four 4-byte loads at its segment's offset, element by
+    element where a quad crosses a segment's end, zeros past lens; one
+    sample a step where n % 4 != 0."""
+    n = wrow.shape[0]
+    dst, delta = _kernel_segment_table(keep_row, n)
+    nseg, length = dst.shape[0] - 1, int(dst[-1])
+    vec = n % 4 == 0
+    unit = 4 if vec else 1
+    steps = _PACK_TILE // (_PACK_THREADS * unit)
+    out = np.full(n, np.nan, np.float32)
+    for j0 in range(0, n, _PACK_TILE):
+        j1 = min(j0 + _PACK_TILE, n)
+        for tid in range(_PACK_THREADS):
+            s = 0
+            for k in range(steps):
+                j = j0 + unit * (k * _PACK_THREADS + tid)
+                if j >= j1:
+                    continue
+                v = np.zeros(unit, np.float32)
+                if j < length:
+                    s = _find_segment(dst, s, nseg, j)
+                    if not vec:
+                        v[0] = wrow[j + delta[s]]
+                    elif j + 4 <= dst[s + 1]:  # four 4-byte loads
+                        v = np.array([wrow[j + delta[s] + i] for i in range(4)], np.float32)
+                    else:
+                        for i in range(4):
+                            if j + i < length:
+                                while dst[s + 1] <= j + i:
+                                    s += 1
+                                v[i] = wrow[j + i + delta[s]]
+                out[j : j + unit] = v
+    return out, length
+
+
+def _pack_case_mask(kind, F, rng):
+    if kind == "random":
+        return rng.uniform(size=F) < 0.5
+    if kind == "runs":  # speech-like runs of 8 frames
+        return np.repeat(rng.uniform(size=F // 8 + 1) < 0.6, 8)[:F]
+    if kind == "alternate":  # the most segments: every other frame
+        return np.arange(F) % 2 == 0
+    if kind == "last_only":
+        return np.arange(F) == F - 1
+    return np.full(F, kind == "all")
+
+
+@pytest.mark.parametrize("F,n", [(293, 80000), (29, 2000), (56, 16000), (43, 12345), (1024, 1024)])
+def test_pack_segment_table_matches_jax_frame_tables(F, n):
+    """The kernel's 32-bit frame starts and its per-row segment table, from
+    JAX's _frame_tables: each segment's source start, packed start and
+    packed end, over random, run, alternate and edge masks."""
+    from pyannote_audio_speaker_diarization_cpp_tpu.ops.pack_pallas import _frame_tables
+
+    run_len, orig_start = _frame_tables(F, n)
+    np.testing.assert_array_equal(_frame_starts32(F, n), np.append(orig_start, n))
+    np.testing.assert_array_equal(np.diff(_frame_starts32(F, n)), run_len)
+    rng = np.random.default_rng(F)
+    for kind in ("random", "runs", "alternate", "last_only", "all", "none"):
+        keep = _pack_case_mask(kind, F, rng)
+        dst, delta = _kernel_segment_table(keep, n)
+        # JAX's segment tables (pack_frames_pallas): maximal kept runs
+        plen = np.where(keep, run_len, 0)
+        pcum = np.cumsum(plen)
+        is_start = keep & np.concatenate([[True], ~keep[:-1]])
+        is_end = keep & np.concatenate([~keep[1:], [True]])
+        np.testing.assert_array_equal(dst[:-1], (pcum - plen)[is_start])
+        np.testing.assert_array_equal(dst[:-1] + delta, orig_start[is_start])
+        np.testing.assert_array_equal(dst[1:], pcum[is_end])
+        assert dst[-1] == plen.sum()
+        if kind == "alternate":
+            assert dst.shape[0] - 1 == (F + 1) // 2
+
+
+def test_pack_rejects_frame_sample_products_past_int32():
+    """F * n >= 2**31 does not fit the kernel's 32-bit frame starts: the
+    wrapper raises before it dispatches (shapes only: batch 0)."""
+    n = 2**31 // 293 + 1
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        pack_cuda.pack_frames(torch.zeros(0, n), torch.zeros(0, 293, dtype=torch.bool))
+    n = 2**31 // 293
+    packed, lens = pack_cuda.pack_frames(torch.zeros(0, n), torch.zeros(0, 293, dtype=torch.bool))
+    assert packed.shape == (0, n) and lens.shape == (0,)
+    for F, n in [(0, 100), (101, 100)]:
+        with pytest.raises(ValueError):
+            pack_cuda.pack_frames(torch.zeros(1, n), torch.zeros(1, F, dtype=torch.bool))
+
+
+@pytest.mark.parametrize(
+    "F,n,kinds",
+    [
+        (293, 80000, ("runs", "alternate")),
+        (56, 16000, ("random", "runs", "alternate", "last_only", "all", "none")),
+        (43, 12345, ("random", "alternate", "last_only", "all")),
+        (29, 2003, ("runs", "alternate")),
+    ],
+)
+def test_pack_kernel_quad_copy_emulation_bit_exact(F, n, kinds):
+    """The kernel's copy, emulated quad by quad (n % 4 == 0) or sample by
+    sample (n % 4 != 0), equals pack_frames_plain bit for bit; every output
+    sample is written (the emulation starts from NaN) and no read leaves the
+    row (numpy raises past its end; no index is negative)."""
+    rng = np.random.default_rng(n)
+    wav = rng.normal(size=(len(kinds), n)).astype(np.float32)
+    keep = np.stack([_pack_case_mask(kind, F, rng) for kind in kinds])
+    want, want_lens = pack_cuda.pack_frames_plain(torch.from_numpy(wav), torch.from_numpy(keep))
+    for r in range(len(kinds)):
+        got, length = _kernel_pack_row(wav[r], keep[r])
+        assert length == int(want_lens[r])
+        np.testing.assert_array_equal(got, want[r].numpy())
+
+
 # ---------------------------------------------------------------------------
 # log-mel front-end (kernel 2)
 # ---------------------------------------------------------------------------
