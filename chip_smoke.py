@@ -17,22 +17,39 @@ Phases, each a JSON line on stdout:
      pack, log-mel and bf16 ASP their registers and spills (log-mel and
      bf16 ASP: blocks an SM), and for log-mel its distance from a float64
      log-mel beside the plain version's;
-  3. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
+  3. clustering: the merge-loop kernel (csrc/linkage.cu, the whole loop in
+     one launch) against its plain version on the card and on the CPU, on
+     embeddings around 5 centres (d = 192, 10 % invalid): tight blobs and a
+     chain (noise 0.3 of the centres' scale: hundreds of merges whose order
+     matters), at T = 384 (128 chunks, the main path's size) and T = 1024
+     (400 and 1536 chunks): rep, steps and the merge log (each step's pair
+     and distance) must be bit-equal; then the whole device_cluster on the
+     card against the CPU (num_large and partition equal) and, on blobs,
+     the host clusterer; kernel ms, plain ms, us a step, the byte bound,
+     registers and spills;
+  4. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
      same weights on the card and on the CPU, in float32 with TF32 off:
-     embeddings must agree and the turns must be equal;
-  4. default_numerics: the same pipeline with the in-repo gate checkpoint
+     embeddings must agree, stage 3 must take the device route on both with
+     equal clusters, and the turns must be equal; then both again with
+     device_clustering=False (the host route): turns equal between card and
+     CPU and to the device route's;
+  5. default_numerics: the same pipeline with the in-repo gate checkpoint
      at the port's defaults on the card, against the CPU in float32
      (embeddings within abs 0.02) and at the defaults (equal turns);
-  5. requests: the main path at full model width (default PyanNet and
+  6. requests: the main path at full model width (default PyanNet and
      ECAPA-TDNN, default config: bf16 ECAPA trunk, f16 transfer), seeded
      random weights, three requests on a synthetic 59 s clip; pack, log-mel
      and the bf16 ASP kernel must launch 12 times per request (128 padded
-     chunks x 3 speakers / 32), the float32 ASP kernel never; one more
-     request with the pack and ASP inputs watched (pack_rows: kept share,
-     segments a row, empty rows; asp_frames: the share of frames valid and
-     walked); then one more under torch.profiler (device time by kernel,
-     the port's own kernels by name);
-  6. the kernel summary line, the nvidia-smi line, and last
+     chunks x 3 speakers / 32), the float32 ASP kernel never, the linkage
+     kernel once, and stage 3 must stay on the device (no embedding fetch);
+     one request with max_speakers must take the host route (one embedding
+     fetch, no linkage launch);
+     one more request with the pack and ASP inputs watched (pack_rows: kept
+     share, segments a row, empty rows; asp_frames: the share of frames
+     valid and walked) and its float16 activations checked; then one more
+     under torch.profiler (device time by kernel, the port's own kernels by
+     name);
+  7. the kernel summary line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -51,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -372,6 +390,136 @@ def kernel_phase(torch):
     return results
 
 
+def partitions_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """The same partition up to a label bijection; -2 rows exactly equal."""
+    if not np.array_equal(a < 0, b < 0):
+        return False
+    fwd = {}
+    for x, y in zip(a[a >= 0], b[a >= 0]):
+        if fwd.setdefault(x, y) != y:
+            return False
+    return len(set(fwd.values())) == len(fwd)
+
+
+# noise to add to centres of scale 4: tight blobs, or a long chain of
+# accepted merges whose order matters (0.3 of the centres' scale)
+NOISE = {"blobs": 0.05, "chain": 1.2}
+
+
+def blob_embeddings(
+    num_chunks: int, seed: int, dim: int = 192, centres: int = 5, noise: float = 0.05
+):
+    """(num_chunks, 3, dim) float64 embeddings around ``centres`` separated
+    centres, f16-rounded as the pipeline transfers them, with 10 % of the
+    rows invalid (NaN), and the (num_chunks, 3) invalid mask."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(centres, dim)) * 4
+    emb = c[rng.integers(0, centres, size=(num_chunks, 3))]
+    emb = emb + noise * rng.normal(size=(num_chunks, 3, dim))
+    emb = emb.astype(np.float16).astype(np.float64)
+    nanmask = rng.random((num_chunks, 3)) < 0.1
+    emb[nanmask] = np.nan
+    return emb, nanmask
+
+
+def clustering_phase(torch):
+    """The linkage kernel against its plain version at the main path's
+    merge-loop size (128 chunks: T = 384) and at the capped size (400 and
+    1536 chunks: T = 1024), on tight blobs and on a chain input (many
+    merges whose order matters), then the whole device_cluster on the card
+    against the CPU, and on blobs against the host clusterer too."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering import device as devclu
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering.base import (
+        AgglomerativeClustering,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import ClusteringConfig
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import _cuda_lib, linkage_cuda
+
+    cfg = ClusteringConfig()
+    thr = cfg.threshold
+    regs, spill = ptxas_report(_cuda_lib.build_log("linkage"), "linkage_kernel")
+    results = {}
+    for kind, chunks in (("blobs", 128), ("chain", 128), ("blobs", 400), ("chain", 400),
+                         ("blobs", 1536)):
+        emb3, nanmask = blob_embeddings(chunks, seed=chunks, noise=NOISE[kind])
+        d = emb3.shape[-1]
+        flat = torch.from_numpy(np.nan_to_num(emb3.reshape(-1, d)).astype(np.float32)).cuda()
+        valid = torch.from_numpy(~nanmask.reshape(-1)).cuda()
+        embt, tvalid, _, K = devclu.train_rows(flat, valid, cfg.max_num_embeddings)
+        T = embt.shape[0]
+        D0 = devclu.initial_distances(embt, tvalid)
+        got = linkage_cuda.linkage_labels(D0, embt, tvalid, thr)
+        plain = linkage_cuda.linkage_labels_plain(D0, embt, tvalid, thr)
+        cpu = linkage_cuda.linkage_labels_plain(D0.cpu(), embt.cpu(), tvalid.cpu(), thr)
+        torch.cuda.synchronize()
+        name = f"{kind} T={T} ({chunks} chunks)"
+        # the same first distances, then every number rounded in one order:
+        # rep, the steps and the merge log (each step's pair and distance)
+        # equal bit for bit on the card and on the CPU
+        for field, k, p, c in zip(plain._fields, got, plain, cpu):
+            check(
+                torch.equal(k, p) and torch.equal(k.cpu(), c),
+                f"linkage {name}: the kernel's {field} differs from the plain version's",
+            )
+        steps = int(got.steps)
+        merged = int((got.merges[:, 0] >= 0).sum())
+        check(merged >= steps - 1, f"linkage {name}: {merged} merges in {steps} steps")
+        # the whole stage: card (kernel) vs CPU (plain loop), and on blobs the
+        # host clusterer
+        card = devclu.device_cluster(flat, valid, ~valid, thr, cfg.min_cluster_size, 8)
+        on_cpu = devclu.device_cluster(
+            flat.cpu(), valid.cpu(), ~valid.cpu(), thr, cfg.min_cluster_size, 8
+        )
+        ch = card.hard.cpu().numpy()
+        check(
+            int(card.num_large) == int(on_cpu.num_large)
+            and partitions_equal(ch, on_cpu.hard.numpy()),
+            f"device_cluster {name}: num_large {int(card.num_large)} (cpu "
+            f"{int(on_cpu.num_large)}) or partition differs from the CPU's",
+        )
+        if kind == "blobs":
+            host, _ = AgglomerativeClustering(cfg)(emb3)
+            host = np.asarray(host).reshape(-1)
+            host[nanmask.reshape(-1)] = -2
+            check(
+                int(card.num_large) == int(host.max()) + 1 and partitions_equal(ch, host),
+                f"device_cluster {name}: differs from the host clusterer "
+                f"(num_large {int(card.num_large)}, host {int(host.max()) + 1})",
+            )
+        ms = time_ms(torch, lambda: linkage_cuda.linkage_labels(D0, embt, tvalid, thr))
+        plain_ms = time_ms(
+            torch, lambda: linkage_cuda.linkage_labels_plain(D0, embt, tvalid, thr),
+            reps=3, warmup=1, queued=False,
+        )
+        # each step reads the live slots' centroids (d floats each: the live
+        # count falls by one a merge), a row of D and the row minima
+        live = int(K)
+        nbytes = 4.0 * sum((live - s) * d + 2 * T for s in range(steps))
+        b, by = bound_ms(nbytes, {})
+        key = f"{kind}_T{T}_chunks{chunks}"
+        results[key] = dict(
+            T=T,
+            d=d,
+            train_rows=live,
+            steps=steps,
+            merges=merged,
+            accepted_bins=len(set(got.rep.cpu().tolist()) - set(range(T))),
+            tolerance="bit-exact: rep, steps, merge pairs and distances",
+            max_abs_err=float((got.rep - plain.rep).abs().max()),
+            num_large=int(card.num_large),
+            ms=ms,
+            us_per_step=ms * 1e3 / max(steps, 1),
+            plain_ms=plain_ms,
+            bound_ms=b,
+            bound_by=by,
+            bound_bytes=nbytes,
+            registers=regs,
+            spill_bytes=spill,
+        )
+        emit({"clustering": f"linkage kernel, {name}", **results[key]})
+    return results
+
+
 def synth_clip(seconds: float, seed: int, quantize: bool) -> np.ndarray:
     sr = 16000
     rng = np.random.default_rng(seed)
@@ -402,13 +550,15 @@ def same_turns(a, b) -> bool:
     return len(set(mapping.values())) == len(mapping)
 
 
-def run_small5s(device: str, float32: bool, params=None):
+def run_small5s(device: str, float32: bool, params=None, device_clustering="auto"):
     """One request of the small5s test configuration (the real 5 s / 0.5 s
     recipe, small model widths) on the 12.3 s int16 clip: float32 compute
     and transfer at precision "highest" (TF32 off), or the defaults (bf16
     ECAPA trunk, f16 transfer, precision "default"). ``params``: a
-    checkpoint tree, else seeded random weights. Returns its embeddings,
-    too_short flags, segmentations (on the CPU) and turns."""
+    checkpoint tree, else seeded random weights. ``device_clustering``:
+    "auto" must take the device stage 3, False the host route. Returns its
+    embeddings, too_short flags, segmentations (on the CPU), the device
+    stage 3's clusters (None on the host route) and turns."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ecapa import EcapaConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import PyanNetConfig
@@ -434,14 +584,23 @@ def run_small5s(device: str, float32: bool, params=None):
             channels=(64, 64, 64, 64, 128), attention_channels=16, se_channels=16, emb_dim=32
         ),
         device=device,
+        device_clustering=device_clustering,
     )
     clip = synth_clip(12.3, seed=977, quantize=True)
     with precision_scope(pipe.precision):
         pending = pipe._dispatch(clip)
+    dc = pending["device_clu"]
+    route = "device" if device_clustering else "host"
+    check(
+        (dc is not None) == bool(device_clustering),
+        f"small5s on {device}: stage 3 did not take the {route} route",
+    )
     return dict(
         emb=pending["emb"].float().cpu(),
         too_short=pending["too_short"].cpu(),
         segs=pending["segmentations"].cpu(),
+        hard=None if dc is None else dc["hard"].cpu().numpy(),
+        num_large=None if dc is None else int(dc["num_large"]),
         turns=turns_of(pipe(clip)),
     )
 
@@ -457,16 +616,40 @@ def parity_phase(torch):
         within(torch, g["emb"][valid], c["emb"][valid], 1e-3, 1e-4),
         f"parity: embeddings differ (max abs {emb_err})",
     )
+    # stage 3 on the device: the linkage kernel on the card, the plain loop
+    # on the CPU
+    check(
+        g["num_large"] == c["num_large"] and partitions_equal(g["hard"], c["hard"]),
+        "parity: device stage 3 clusters differ between cuda and cpu",
+    )
     check(same_turns(g["turns"], c["turns"]), "parity: turns differ between cuda and cpu")
+    # the host route (device_clustering=False; also bounds, too many rows,
+    # or num_large 0 or above k_max): the embeddings fetched, the host
+    # clusterer, post_cluster on the card
+    host = {
+        device: run_small5s(device, float32=True, device_clustering=False)
+        for device in ("cuda", "cpu")
+    }
+    check(
+        same_turns(host["cuda"]["turns"], host["cpu"]["turns"]),
+        "parity: host-route turns differ between cuda and cpu",
+    )
+    check(
+        same_turns(host["cuda"]["turns"], g["turns"]),
+        "parity: host-route turns differ from the device route's",
+    )
     emit(
         {
-            "parity": "small5s cuda vs cpu, float32, TF32 off",
+            "parity": "small5s cuda vs cpu, float32, TF32 off, device stage 3 on both",
             "clip_s": 12.3,
             "emb_max_abs_err": emb_err,
             "seg_max_abs_err": seg_err,
             "embedding_rows": int(valid.sum()),
+            "num_large": g["num_large"],
+            "clusters_equal": True,
             "turns": len(c["turns"]),
             "turns_equal": True,
+            "host_route_turns_equal_cpu_and_device_route": True,
         }
     )
 
@@ -525,10 +708,20 @@ def main_path_phase(torch, counters):
     count, launches a request must make or None for one per stage-2
     batch)."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines import diarization
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
         SpeakerDiarizationPipeline,
     )
 
+    # the host clustering route is the only caller of finalize_embeddings:
+    # counting its calls shows whether the embeddings left the card
+    real_finalize, host_route = diarization.finalize_embeddings, []
+
+    def counted_finalize(*args, **kwargs):
+        host_route.append(1)
+        return real_finalize(*args, **kwargs)
+
+    diarization.finalize_embeddings = counted_finalize
     pipe = SpeakerDiarizationPipeline(seed=0)  # default config, full widths, cuda
     seg = pipe.config.segmentation
     clip = synth_clip(59.0, seed=0, quantize=False)
@@ -557,6 +750,7 @@ def main_path_phase(torch, counters):
             launched == expected,
             f"main path: launches {launched}, expected {expected} per request",
         )
+        check(not host_route, "main path: the embeddings were fetched for host clustering")
         t = pipe.timings
         emit(
             {
@@ -570,7 +764,13 @@ def main_path_phase(torch, counters):
                     "fetch": t.fetch,
                     "clustering": t.clustering,
                 },
-                "device_ms": {"stage1": t.stage1_ms, "stage2": t.stage2_ms, "post": t.post_ms},
+                "device_ms": {
+                    "stage1": t.stage1_ms,
+                    "stage2": t.stage2_ms,
+                    "stage3": t.stage3_ms,
+                    "post": t.post_ms,
+                },
+                "stage3_route": "device",
                 "padded_chunks": padded,
                 "turns": len(annotation.turns()),
                 "speakers": len(annotation.labels),
@@ -579,9 +779,48 @@ def main_path_phase(torch, counters):
             }
         )
     totals = count()
+    # one request with a speaker bound: the host route at full width (the
+    # embeddings fetched, the host clusterer, post_cluster on the card), no
+    # linkage launch
+    before = count()
+    t0 = time.perf_counter()
+    annotation = pipe(clip, max_speakers=pipe.k_max)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {name: n - before[name] for name, n in count().items()}
+    check(
+        launched == dict(expected, linkage=0),
+        f"host-route request: launches {launched}",
+    )
+    check(len(host_route) == 1, "host-route request: the embeddings were not fetched")
+    check(len(annotation.labels) >= 1, "host-route request: no speaker")
+    t = pipe.timings
+    emit(
+        {
+            "request": "host route (max_speakers)",
+            "wall_ms": wall_ms,
+            "host_s": {"fetch": t.fetch, "clustering": t.clustering},
+            "device_ms": {"post": t.post_ms},
+            "stage3_route": "host",
+            "turns": len(annotation.turns()),
+            "speakers": len(annotation.labels),
+            "launches": launched,
+        }
+    )
+    diarization.finalize_embeddings = real_finalize
     # outputs: finite embeddings of the expected shape (one more, uncounted
     # run), and the pack and ASP inputs that run passes
     pending = watched_request(torch, pipe, clip)
+    dc = pending["device_clu"]
+    check(dc is not None, "main path: stage 3 did not take the device route")
+    act = dc["activations"]
+    check(
+        act.dtype == torch.float16
+        and tuple(act.shape) == (pipe._diarization_plan(padded).num_frames, pipe.k_max)
+        and bool(torch.isfinite(act).all()),
+        f"main path: activations {act.dtype} {tuple(act.shape)}",
+    )
+    check(1 <= int(dc["num_large"]) <= pipe.k_max, "main path: num_large out of range")
     emb = pending["emb"].float()
     rows = pending["num_chunks"] * seg.num_speakers
     check(
@@ -617,12 +856,43 @@ def watched_request(torch, pipe, clip):
         lens.append(row_lens)
         return packed, row_lens
 
+    # host waits for the card while the request is enqueued, counted by
+    # PyTorch's sync debug mode: all of them, and those inside stage 3
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines import diarization
+
+    real_stage3, in_stage3 = diarization.stage3, []
+
+    def watched_stage3(*args, **kwargs):
+        in_stage3.append(len(caught))
+        out = real_stage3(*args, **kwargs)
+        in_stage3.append(len(caught))
+        return out
+
     ecapa.asp_pool, mk.pack_frames = watched_asp, watched_pack
-    try:
-        pending = pipe._dispatch(clip)
-        torch.cuda.synchronize()
-    finally:
-        ecapa.asp_pool, mk.pack_frames = real_asp, real_pack
+    diarization.stage3 = watched_stage3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pending = pipe._dispatch(clip)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            ecapa.asp_pool, mk.pack_frames = real_asp, real_pack
+            diarization.stage3 = real_stage3
+    torch.cuda.synchronize()
+    def sync_lines(ws):
+        return [str(w.message).splitlines()[0] for w in ws if "synchroniz" in str(w.message)]
+
+    check(len(in_stage3) == 2, "watched request: stage 3 did not run on the device")
+    syncs = sync_lines(caught)
+    emit(
+        {
+            "dispatch_syncs": "host waits for the card while one 59 s request is enqueued",
+            "count": len(syncs),
+            "in_stage3": len(sync_lines(caught[in_stage3[0] : in_stage3[1]])),
+            "first": syncs[:3],
+        }
+    )
     keep, row_lens = torch.cat(keeps), torch.cat(lens)
     rows, frames = keep.shape
     n = pipe.config.segmentation.window_size
@@ -704,7 +974,16 @@ def profile_request(torch, pipe, clip):
     ours = {
         name[:60]: {"device_ms": ms, "calls": n}
         for name, (ms, n) in by_name.items()
-        if any(k in name for k in ("asp_bf16_kernel", "asp_kernel", "log_mel_kernel", "pack_kernel"))
+        if any(
+            k in name
+            for k in (
+                "asp_bf16_kernel",
+                "asp_kernel",
+                "log_mel_kernel",
+                "pack_kernel",
+                "linkage_kernel",
+            )
+        )
     }
     emit(
         {
@@ -731,6 +1010,7 @@ def main() -> int:
         _cuda_lib,
         asp_cuda,
         frontend_cuda,
+        linkage_cuda,
         pack_cuda,
     )
 
@@ -755,6 +1035,9 @@ def main() -> int:
         }
     )
     kernels = kernel_phase(torch)
+    clustering = clustering_phase(torch)
+    # the linkage kernel at the main path's merge-loop size (T = 384)
+    kernels["linkage"] = clustering["blobs_T384_chunks128"]
     parity_phase(torch)
     default_numerics_phase(torch)
     counters = {
@@ -763,6 +1046,8 @@ def main() -> int:
         "asp_pool": (asp_cuda.asp_pool, "bfloat16_launches", None),
         # the float32 kernel serves precision="highest": none on the main path
         "asp_pool_float32": (asp_cuda.asp_pool, "float32_launches", 0),
+        # the whole merge loop of stage 3: one launch a request
+        "linkage": (linkage_cuda.linkage_labels, "launches", 1),
     }
     totals, expected = main_path_phase(torch, counters)
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
@@ -776,6 +1061,12 @@ def main() -> int:
             "asp_pool_float32",
             f"{pkg}/csrc/asp.cu",
             f"{tpu}/ops/asp_pallas.py:71",
+        ),
+        (
+            "linkage",
+            "linkage",
+            f"{pkg}/csrc/linkage.cu",
+            f"{tpu}/clustering/device.py:138",
         ),
     ]
     summary = []

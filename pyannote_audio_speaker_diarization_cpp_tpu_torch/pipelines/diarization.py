@@ -13,13 +13,18 @@ pipelines/diarization.py:
     (ops/pack_cuda.py), computes log-mel features (ops/frontend_cuda.py) and
     ECAPA-TDNN embeddings (models/ecapa.py, attentive pooling tail in
     ops/asp_cuda.py), in batches of ``emb_batch`` rows;
-  - stage 3 clusters the embeddings on the host (clustering/base.py), then
-    the per-cluster max and overlap-add run on the device and the host
-    decodes the timeline (pipelines/reconstruct.py).
+  - stage 3, for an eligible request (``device_clustering="auto"``, no
+    speaker bounds, at most ``device_cluster_rows`` rows), runs on the device
+    right after stage 2: clustering (clustering/device.py, its merge loop one
+    launch of ``csrc/linkage.cu``), the per-cluster max and the overlap-add,
+    giving float16 activations; the host fetches those once and decodes the
+    timeline (pipelines/reconstruct.py). Otherwise the host fetches the
+    embeddings, clusters them (clustering/base.py) and the per-cluster max
+    and overlap-add run on the device before the decode.
 
 The device work of a request is launched asynchronously on the current
-stream; the host waits once for the clustering inputs and once for the
-final activations.
+stream. On the device route the host waits once, for the activations; on
+the host route once for the clustering inputs and once for the activations.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..clustering import device as devclu
 from ..clustering.base import AgglomerativeClustering
 from ..config import DEFAULT_CONFIG, DiarizationConfig
 from ..core.annotation import Annotation
@@ -105,13 +111,52 @@ def post_cluster(
     one-hot of the host hard clusters (all False for padding chunks and
     inactive speakers).
     """
-    masked = torch.where(
-        membership[:, None, :, :], segs[..., None], torch.tensor(float("-inf"), device=segs.device)
-    )
+    masked = torch.where(membership[:, None, :, :], segs[..., None], float("-inf"))
     clustered = masked.amax(dim=2)  # (n, F, K)
     has = membership.any(dim=1)[:, None, :]
-    clustered = torch.where(has, clustered, torch.tensor(float("nan"), device=segs.device))
+    clustered = torch.where(has, clustered, float("nan"))
     return aggregate(clustered, start_frames, num_frames, missing=0.0, skip_average=True)
+
+
+def stage3(
+    segs: torch.Tensor,
+    emb: torch.Tensor,
+    too_short: torch.Tensor,
+    inactive: torch.Tensor,
+    start_frames: torch.Tensor,
+    num_frames: int,
+    clu_key: tuple,
+):
+    """Stage 3 on the device: clustering (clustering/device.py), the one-hot
+    membership of each (chunk, local speaker) row, the per-cluster max and
+    the skip-average overlap-add. ``clu_key``: (threshold, min_cluster_size,
+    k_max, train_cap). Returns (activations (num_frames, k_max) float16,
+    hard (rows,) int32, num_large () int32)."""
+    threshold, mcs, k_max, cap = clu_key
+    n, _, S = segs.shape
+    res = devclu.device_cluster(
+        emb.to(torch.float32),
+        ~too_short,
+        inactive.reshape(-1),
+        threshold,
+        mcs,
+        k_max,
+        train_cap=cap,
+    )
+    hard = res.hard.reshape(n, S)
+    membership = (hard[:, :, None] == torch.arange(k_max, device=hard.device)) & (
+        hard >= 0
+    )[:, :, None]
+    activations = post_cluster(segs, membership, start_frames, num_frames)
+    return activations.to(torch.float16), res.hard, res.num_large
+
+
+def fetch(*tensors: torch.Tensor):
+    """Device tensors -> numpy arrays, with one wait for all of them."""
+    if tensors and tensors[0].device.type == "cuda":
+        tensors = [t.to("cpu", non_blocking=True) for t in tensors]
+        torch.cuda.current_stream().synchronize()
+    return [t.numpy() for t in tensors]
 
 
 def finalize_embeddings(
@@ -151,14 +196,17 @@ def load_waveform(
 class StageTimings:
     """Where one request's time went.
 
-    Host wall seconds: ``segmentation`` (host prep + launching both device
-    stages; stage 2 is launched asynchronously, so its host time is in
-    here), ``fetch`` (waiting for the device and copying the clustering
-    inputs), ``clustering`` (host clustering + the device post-step + the
-    decode).
+    Host wall seconds: ``segmentation`` (host prep + launching the device
+    stages; they run asynchronously, so their host time is in here),
+    ``fetch`` (waiting for the device and copying what the host needs: the
+    activations on the device route, the clustering inputs on the host
+    route), ``clustering`` (the decode; on the host route also host
+    clustering and the device post-step).
 
-    Device milliseconds from CUDA events (0 on the CPU): ``stage1_ms``,
-    ``stage2_ms`` and ``post_ms`` (the post-clustering aggregation).
+    Device milliseconds from CUDA events (0 on the CPU, and 0 for a stage
+    the request did not run): ``stage1_ms``, ``stage2_ms``, ``stage3_ms``
+    (device stage 3) and ``post_ms`` (the host route's post-clustering
+    aggregation).
     """
 
     segmentation: float = 0.0
@@ -166,6 +214,7 @@ class StageTimings:
     clustering: float = 0.0
     stage1_ms: float = 0.0
     stage2_ms: float = 0.0
+    stage3_ms: float = 0.0
     post_ms: float = 0.0
 
 
@@ -178,7 +227,21 @@ class SpeakerDiarizationPipeline:
     without one; pass ``"cpu"`` to run on the CPU (every kernel then runs
     its plain PyTorch version). ``precision``: "default" or "highest" (TF32
     off for float32 matmuls, convolutions and the LSTM).
+
+    ``device_clustering``: "auto" (the default) runs stage 3 on the device
+    for every eligible request: the default agglomerative clusterer
+    (centroid linkage, cosine, unconstrained), no speaker bounds, at most
+    ``device_cluster_rows`` embedding rows, and a merge loop of at most
+    ``_UNCAPPED_DEVICE_ROWS`` train rows; every other request, and one whose
+    device result has no cluster or more than ``k_max``, takes the host
+    clusterer. False always takes the host clusterer; True raises on an
+    incompatible clusterer.
     """
+
+    # the largest merge loop (train rows T) the device stage 3 takes: T is
+    # the clusterer's train cap rounded up to 128, or the row count when the
+    # clusterer has no cap
+    _UNCAPPED_DEVICE_ROWS = 1536
 
     def __init__(
         self,
@@ -193,6 +256,9 @@ class SpeakerDiarizationPipeline:
         pyannet_cfg: Optional[PyanNetConfig] = None,
         ecapa_cfg: Optional[EcapaConfig] = None,
         device=None,
+        device_clustering: Union[str, bool] = "auto",
+        device_cluster_rows: int = 6144,
+        k_max: int = 8,
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
@@ -226,6 +292,20 @@ class SpeakerDiarizationPipeline:
                 raise ValueError(f"unknown clusterer: {clusterer!r}")
             clusterer = AgglomerativeClustering(config.clustering)
         self.clusterer = clusterer
+        self.k_max = k_max
+        self.device_cluster_rows = device_cluster_rows
+        compatible = (
+            isinstance(clusterer, AgglomerativeClustering)
+            and clusterer.config.method == "centroid"
+            and clusterer.config.metric == "cosine"
+            and not clusterer.constrained_assignment
+        )
+        if device_clustering is True and not compatible:
+            raise ValueError(
+                "device_clustering=True requires the default agglomerative "
+                "clusterer (centroid linkage, cosine metric, unconstrained)"
+            )
+        self._device_clu_enabled = bool(device_clustering) and compatible
         # exact_orphan=True (default): every chunk is scored with its TRUE
         # sample count (masked instance norms + packed reverse LSTM), so the
         # short orphan chunk matches the reference's true-length inference
@@ -252,6 +332,52 @@ class SpeakerDiarizationPipeline:
             self.seg_batch, self.emb_batch, max(self.config.chunk_bucket, 1)
         )
         return _ceil_to(num_chunks, bucket)
+
+    def _device_train_size(self, rows: int, cap) -> int:
+        """The merge-loop size device_cluster would use."""
+        if cap is None:
+            return rows
+        return min(rows, -(-cap // 128) * 128)
+
+    def _no_speaker_bounds(self, num_speakers, min_speakers, max_speakers) -> bool:
+        """True when neither the call nor the config pins speaker counts
+        (explicit bounds need the host dendrogram search)."""
+        cfg = self.config
+        return all(
+            b is None
+            for b in (
+                num_speakers,
+                min_speakers,
+                max_speakers,
+                cfg.num_speakers,
+                cfg.min_speakers,
+                cfg.max_speakers,
+            )
+        )
+
+    def _device_clu_key(self):
+        """(threshold, min_cluster_size, k_max, train_cap) when device
+        clustering is enabled and the clusterer is compatible, else None."""
+        if not self._device_clu_enabled:
+            return None
+        c = self.clusterer.config
+        cap = self.clusterer.max_num_embeddings
+        # "no cap" spellings (None, inf) -> None
+        cap = None if cap is None or cap == float("inf") else int(cap)
+        return (c.threshold, c.min_cluster_size, self.k_max, cap)
+
+    def _device_clu_eligible(self, rows: int, num_speakers, min_speakers, max_speakers) -> bool:
+        """Whether a request of ``rows`` embedding rows runs stage 3 on the
+        device: enabled, at most ``device_cluster_rows`` rows, a merge loop
+        of at most ``_UNCAPPED_DEVICE_ROWS`` train rows (a clusterer without a
+        cap, or with a large one, sizes the loop past it), and no speaker
+        bounds."""
+        if not self._device_clu_enabled or rows > self.device_cluster_rows:
+            return False
+        cap = self._device_clu_key()[3]
+        if self._device_train_size(rows, cap) > self._UNCAPPED_DEVICE_ROWS:
+            return False
+        return self._no_speaker_bounds(num_speakers, min_speakers, max_speakers)
 
     def _diarization_plan(self, num_chunks):
         """Aggregation plan for the post-clustering overlap-add: untrimmed
@@ -287,8 +413,14 @@ class SpeakerDiarizationPipeline:
             key, plan_aggregation(num_chunks, trimmed_frames, frame_grid)
         )
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    def _to_device(self, array: np.ndarray, wait: bool = True) -> torch.Tensor:
+        """A host array on the pipeline's device. A plain copy to the card
+        waits for the stream to drain first; ``wait=False`` copies from
+        pinned memory instead, behind the work already queued."""
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if wait or self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
     # device stages
@@ -394,7 +526,13 @@ class SpeakerDiarizationPipeline:
         max_speakers: Optional[int] = None,
     ) -> Annotation:
         with precision_scope(self.precision):
-            pending = self._dispatch(audio, sample_rate)
+            pending = self._dispatch(
+                audio,
+                sample_rate,
+                num_speakers=num_speakers,
+                min_speakers=min_speakers,
+                max_speakers=max_speakers,
+            )
             return self._collect(
                 pending,
                 num_speakers=num_speakers,
@@ -402,10 +540,10 @@ class SpeakerDiarizationPipeline:
                 max_speakers=max_speakers,
             )
 
-    def _events(self):
+    def _events(self, n: int):
         if self.device.type != "cuda":
             return None
-        return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
     def _prepare(self, waveform: np.ndarray):
         """Host prep of one waveform: (num_chunks, num_padded, wav_padded,
@@ -440,9 +578,18 @@ class SpeakerDiarizationPipeline:
         return num_chunks, num_padded, wav_padded, valid_frames, valid_samples
 
     @torch.inference_mode()
-    def _dispatch(self, audio, sample_rate=None, timings: Optional[StageTimings] = None):
-        """Host prep + both device stages, launched without waiting;
-        returns the pending state _collect needs."""
+    def _dispatch(
+        self,
+        audio,
+        sample_rate=None,
+        timings: Optional[StageTimings] = None,
+        num_speakers=None,
+        min_speakers=None,
+        max_speakers=None,
+    ):
+        """Host prep + the device stages (stage 3 too for an eligible
+        request), launched without waiting; returns the pending state
+        _collect needs."""
         timings = timings if timings is not None else self.timings
         seg_cfg = self.config.segmentation
         waveform = load_waveform(audio, sample_rate, seg_cfg.sample_rate)
@@ -452,7 +599,7 @@ class SpeakerDiarizationPipeline:
         num_chunks, num_padded, wav_padded, valid_frames, valid_samples = self._prepare(
             waveform
         )
-        events = self._events()
+        events = self._events(4)
         if events:
             events[0].record()
         chunks = win.device_chunks(
@@ -466,6 +613,25 @@ class SpeakerDiarizationPipeline:
         emb, too_short = self._stage2(chunks, chosen)
         if events:
             events[2].record()
+
+        # stage 3 on the device, right behind stage 2: the host then fetches
+        # only the activations
+        device_clu = None
+        rows = num_padded * seg_cfg.num_speakers
+        if self._device_clu_eligible(rows, num_speakers, min_speakers, max_speakers):
+            dia_plan = self._diarization_plan(num_padded)
+            activations, hard, num_large = stage3(
+                segmentations,
+                emb,
+                too_short,
+                inactive,
+                self._to_device(dia_plan.start_frames, wait=False),
+                dia_plan.num_frames,
+                self._device_clu_key(),
+            )
+            device_clu = {"activations": activations, "hard": hard, "num_large": num_large}
+        if events:
+            events[3].record()
 
         real_plan = self._count_plan(num_chunks)
         timings.segmentation = time.perf_counter() - t0
@@ -485,6 +651,7 @@ class SpeakerDiarizationPipeline:
             "real_plan": real_plan,
             "count_frames": dataclasses.replace(real_plan.frames, num_samples=num_samples),
             "events": events,
+            "device_clu": device_clu,
         }
 
     @torch.inference_mode()
@@ -496,14 +663,33 @@ class SpeakerDiarizationPipeline:
         max_speakers=None,
         timings: Optional[StageTimings] = None,
     ) -> Annotation:
-        """Fetch one pending request's clustering inputs, cluster on host,
-        run the device post-step, decode the timeline."""
+        """Decode one pending request: from the device stage 3's activations
+        (one fetch), or else fetch the clustering inputs, cluster on the
+        host, run the device post-step and decode."""
         timings = timings if timings is not None else self.timings
         cfg = self.config
         seg_cfg = cfg.segmentation
         num_chunks = pending["num_chunks"]
         num_padded = pending["num_padded"]
-        real_plan = pending["real_plan"]
+        timings.post_ms = 0.0
+
+        dc = pending.get("device_clu")
+        bounds_given = any(b is not None for b in (num_speakers, min_speakers, max_speakers))
+        if dc is not None and not bounds_given:
+            t0 = time.perf_counter()
+            act_h, num_large_h, count_h = fetch(
+                dc["activations"], dc["num_large"], pending["count_raw"]
+            )
+            timings.fetch = time.perf_counter() - t0
+            self._read_events(pending, timings)
+            num_clusters = int(num_large_h)
+            if 1 <= num_clusters <= self.k_max:
+                t0 = time.perf_counter()
+                annotation = self._decode(pending, act_h.astype(np.float32), num_clusters, count_h)
+                timings.clustering = time.perf_counter() - t0
+                return annotation
+            # no cluster (the host's dendrogram search must run) or more than
+            # k_max: the host route below, from the still resident embeddings
 
         t0 = time.perf_counter()
         rows = num_chunks * seg_cfg.num_speakers
@@ -514,10 +700,7 @@ class SpeakerDiarizationPipeline:
             emb_h[:rows], too_short_h[:rows], num_chunks, seg_cfg.num_speakers
         )
         timings.fetch = time.perf_counter() - t0
-        events = pending.get("events")
-        if events:
-            timings.stage1_ms = events[0].elapsed_time(events[1])
-            timings.stage2_ms = events[1].elapsed_time(events[2])
+        self._read_events(pending, timings)
 
         t0 = time.perf_counter()
         hard, _soft = self.clusterer(
@@ -533,7 +716,7 @@ class SpeakerDiarizationPipeline:
         ci, si = np.nonzero(hard >= 0)
         membership[ci, si, hard[ci, si]] = True
 
-        post_events = self._events()
+        post_events = self._events(2)
         if post_events:
             post_events[0].record()
         dia_plan = self._diarization_plan(num_padded)
@@ -545,16 +728,35 @@ class SpeakerDiarizationPipeline:
         )
         if post_events:
             post_events[1].record()
-        real_dia_plan = self._diarization_plan(num_chunks)
-        activations = activations_dev.cpu().numpy()[: real_dia_plan.num_frames, :num_clusters]
+        activations = activations_dev.cpu().numpy()
         count_h = pending["count_raw"].cpu().numpy()
         if post_events:
             timings.post_ms = post_events[0].elapsed_time(post_events[1])
-        count = np.rint(count_h[: real_plan.num_frames]).astype(np.int64)
+        annotation = self._decode(pending, activations, num_clusters, count_h)
+        timings.clustering = time.perf_counter() - t0
+        return annotation
+
+    @staticmethod
+    def _read_events(pending, timings: StageTimings) -> None:
+        """Device ms of the request's stages, once the card has run them
+        (stage3_ms is about 0 when stage 3 took the host route)."""
+        events = pending.get("events")
+        if events:
+            timings.stage1_ms = events[0].elapsed_time(events[1])
+            timings.stage2_ms = events[1].elapsed_time(events[2])
+            timings.stage3_ms = events[2].elapsed_time(events[3])
+
+    def _decode(self, pending, activations: np.ndarray, num_clusters: int, count_h: np.ndarray):
+        """Host (frames, K) activations and the raw speaker count -> turns."""
+        cfg = self.config
+        seg_cfg = cfg.segmentation
+        real_dia_plan = self._diarization_plan(pending["num_chunks"])
+        activations = activations[: real_dia_plan.num_frames, :num_clusters]
+        count = np.rint(count_h[: pending["real_plan"].num_frames]).astype(np.int64)
         binary, binary_frames = rec.binarize_by_count(
             activations, real_dia_plan.frames, count, pending["count_frames"]
         )
-        annotation = rec.to_annotation(
+        return rec.to_annotation(
             binary,
             binary_frames,
             onset=cfg.clustering.binarize_onset,
@@ -562,8 +764,6 @@ class SpeakerDiarizationPipeline:
             min_duration_on=seg_cfg.min_duration_on,
             min_duration_off=seg_cfg.min_duration_off,
         )
-        timings.clustering = time.perf_counter() - t0
-        return annotation
 
     def finalize(
         self,

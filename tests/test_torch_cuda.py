@@ -252,3 +252,110 @@ def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
     )
     torch.testing.assert_close(mean.float(), want_mean.float(), rtol=tol["mean"][0], atol=tol["mean"][1])
     torch.testing.assert_close(std.float(), want_std.float(), rtol=tol["std"][0], atol=tol["std"][1])
+
+
+def _linkage_rows(kind, T, seed, d=192):
+    """(embt (T, d) L2-normalised, tvalid (T,)) for the merge-loop kernel:
+    blobs around 5 centres with 10 % of the rows invalid (tight: 0.0125 of
+    noise to a centre's scale; chain: 0.3, a long run of merges whose order
+    matters; cut: 0.8, the threshold cuts the tree into many flat clusters),
+    one valid row, all rows identical (every distance ties), or rows too far
+    apart to merge."""
+    rng = np.random.default_rng(seed)
+    tvalid = np.ones(T, bool)
+    noise = {"blobs": 0.05, "chain": 1.2, "cut": 3.2}
+    if kind in noise:
+        centres = rng.normal(size=(5, d)) * 4
+        x = centres[rng.integers(0, 5, T)] + noise[kind] * rng.normal(size=(T, d))
+        tvalid = rng.random(T) >= 0.1
+    elif kind == "one_valid":
+        x = rng.normal(size=(T, d))
+        tvalid[:] = False
+        tvalid[T // 3] = True
+    elif kind == "identical":
+        x = np.repeat(rng.normal(size=(1, d)), T, axis=0)
+    else:  # "apart": near-orthogonal unit rows, ~1.41 apart
+        x = rng.normal(size=(T, d))
+    x = x / np.linalg.norm(x, axis=1, keepdims=True)
+    x[~tvalid] = 0.0
+    return torch.from_numpy(x.astype(np.float32)), torch.from_numpy(tvalid)
+
+
+# (kind, T): the edges, the main path's size, the capped size and the largest
+_LINKAGE_CASES = [
+    ("one_valid", 128),
+    ("identical", 128),
+    ("apart", 128),
+    ("blobs", 384),
+    ("chain", 384),
+    ("cut", 384),
+    ("blobs", 1024),
+    ("chain", 1024),
+    ("blobs", 1536),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T", _LINKAGE_CASES)
+def test_linkage_kernel_matches_plain(cuda, kind, T):
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering.device import (
+        initial_distances,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import ClusteringConfig
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import linkage_cuda
+
+    thr = ClusteringConfig().threshold
+    embt, tvalid = _linkage_rows(kind, T, seed=T)
+    D0 = initial_distances(embt.to(cuda), tvalid.to(cuda))
+    before = linkage_cuda.linkage_labels.launches
+    got = linkage_cuda.linkage_labels(D0, embt.to(cuda), tvalid.to(cuda), thr)
+    assert linkage_cuda.linkage_labels.launches == before + 1
+    # the plain version on the CPU, from the same first distance matrix:
+    # every later distance and centroid is rounded in the same order, so rep,
+    # the steps and the merge log (each step's pair and distance) are equal
+    plain = linkage_cuda.linkage_labels_plain(D0.cpu(), embt, tvalid, thr)
+    for field, a, b in zip(plain._fields, got, plain):
+        assert torch.equal(a.cpu(), b), field
+    want, want_steps = plain.rep, int(plain.steps)
+    if kind == "one_valid" or kind == "apart":
+        assert want_steps == 1 and torch.equal(want, torch.arange(T, dtype=torch.int32))
+    if kind == "identical":
+        assert want_steps == T - 1 and len(set(want.tolist())) == 1
+
+
+@pytest.mark.cuda
+def test_device_cluster_on_card_matches_cpu(cuda):
+    """The whole device_cluster, uncapped at 1536 rows: the card (kernel) and
+    the CPU (plain loop) give the same num_large and partition."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering.device import device_cluster
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import ClusteringConfig
+
+    thr = ClusteringConfig().threshold
+    rng = np.random.default_rng(3)
+    centres = rng.normal(size=(5, 192)) * 4
+    emb = (centres[rng.integers(0, 5, 1536)] + 0.05 * rng.normal(size=(1536, 192))).astype(np.float32)
+    valid = rng.random(1536) >= 0.1
+    args = [torch.from_numpy(emb), torch.from_numpy(valid), torch.from_numpy(~valid)]
+    cpu = device_cluster(*args, thr, 15, 8, train_cap=None)
+    card = device_cluster(*(a.to(cuda) for a in args), thr, 15, 8, train_cap=None)
+    assert int(card.num_large) == int(cpu.num_large) == 5
+    a, b = card.hard.cpu().numpy(), cpu.hard.numpy()
+    assert np.array_equal(a < 0, b < 0)
+    pairs = set(zip(a.tolist(), b.tolist()))
+    assert len(pairs) == len({x for x, _ in pairs}) == len({y for _, y in pairs})
+
+
+@pytest.mark.cuda
+def test_linkage_kernel_rejects_inputs(cuda):
+    """Inputs the kernel does not take raise; nothing falls back."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import linkage_cuda
+
+    embt, tvalid = _linkage_rows("blobs", 1600, seed=1)
+    embt, tvalid = embt.to(cuda), tvalid.to(cuda)
+    D0 = torch.zeros((1600, 1600), device=cuda)
+    with pytest.raises(ValueError):  # more rows than the kernel holds
+        linkage_cuda.linkage_labels(D0, embt, tvalid, 0.7)
+    with pytest.raises(ValueError):  # float64
+        linkage_cuda.linkage_labels(D0[:64, :64].double(), embt[:64].double(), tvalid[:64], 0.7)
+    with pytest.raises(ValueError):  # not contiguous
+        linkage_cuda.linkage_labels(D0[:64, :128:2], embt[:64], tvalid[:64], 0.7)

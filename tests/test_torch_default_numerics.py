@@ -9,6 +9,10 @@ BASELINE.md) is taken against the JAX float32 run: the JAX default ASP tail
 runs its score conv, softmax and statistics in bf16 (models/ecapa.py, the
 jnp form), while the port's runs them in float32, so the two default runs
 sit further apart than either sits from float32.
+
+Both packages run stage 3 at their default, ``device_clustering="auto"``:
+the device route, whose activations are float16 on both sides, so the
+turn comparison covers that cast.
 """
 
 import dataclasses
@@ -64,6 +68,7 @@ def run_three(cfg, batch, params, audio):
     out = {}
     for name, pipe in (("port", port), ("jax", jax_default), ("jax_f32", jax_f32)):
         pending = pipe._dispatch(audio)
+        assert pending["device_clu"] is not None  # both defaults: stage 3 on the device
         emb, too_short = (np.asarray(jax.device_get(pending[k])) for k in ("emb", "too_short"))
         out[name] = (emb.astype(np.float32), too_short, pipe(audio))
     return out

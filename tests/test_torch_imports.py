@@ -64,8 +64,12 @@ pipe = SpeakerDiarizationPipeline(
     ecapa_cfg=EcapaConfig(channels=(32, 32, 32, 32, 64), attention_channels=8, se_channels=8, emb_dim=16),
     device="cpu",
 )
+from {PORT}.clustering.device import device_cluster
+from {PORT}.ops.linkage_cuda import linkage_labels
 t = np.arange(40000) / 16000
-ann = pipe((0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32))
+wave = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+assert pipe._dispatch(wave)["device_clu"] is not None  # stage 3 on the device route
+ann = pipe(wave)
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {FORBIDDEN!r})
 print("ok", len(ann.turns()))
 """

@@ -65,8 +65,9 @@ def port_config(cfg) -> tcfg.DiarizationConfig:
     return tcfg.DiarizationConfig(**fields)
 
 
-def build_pair(jax_cfg, batch, params=None, seed=0):
-    """(jax pipeline, port pipeline) on the same weights, conservative mode."""
+def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False):
+    """(jax pipeline, port pipeline) on the same weights, conservative mode,
+    both with the same ``device_clustering``."""
     jax_cfg = dataclasses.replace(jax_cfg, compute_dtype="float32", transfer_dtype="float32")
     jp = JaxPipeline(
         jax_cfg,
@@ -77,7 +78,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0):
         pyannet_cfg=SMALL_PYANNET,
         ecapa_cfg=SMALL_ECAPA,
         precision=jax.lax.Precision.HIGHEST,
-        device_clustering=False,
+        device_clustering=device_clustering,
     )
     tp = SpeakerDiarizationPipeline(
         port_config(jax_cfg),
@@ -88,6 +89,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0):
         pyannet_cfg=PyanNetConfig(**dataclasses.asdict(SMALL_PYANNET)),
         ecapa_cfg=EcapaConfig(**dataclasses.asdict(SMALL_ECAPA)),
         device="cpu",
+        device_clustering=device_clustering,
     )
     return jp, tp
 
