@@ -18,14 +18,15 @@ Phases, each a JSON line on stdout:
      bf16 ASP: blocks an SM), and for log-mel its distance from a float64
      log-mel beside the plain version's;
   3. clustering: the merge-loop kernel (csrc/linkage.cu, the whole loop in
-     one launch) against its plain version on the card and on the CPU, on
-     embeddings around 5 centres (d = 192, 10 % invalid): tight blobs and a
-     chain (noise 0.3 of the centres' scale: hundreds of merges whose order
-     matters), at T = 384 (128 chunks, the main path's size) and T = 1024
+     one launch of one thread-block cluster) against its plain version on
+     the card and on the CPU, on embeddings around 5 centres (d = 192, 10 %
+     invalid): tight blobs and a chain (noise 0.3 of the centres' scale:
+     hundreds of merges whose order matters), at T = 384 (128 chunks, the main path's size) and T = 1024
      (400 and 1536 chunks): rep, steps and the merge log (each step's pair
      and distance) must be bit-equal; then the whole device_cluster on the
      card against the CPU (num_large and partition equal) and, on blobs,
      the host clusterer; kernel ms, plain ms, us a step, the byte bound,
+     the cluster size, shared memory a block and which state it holds,
      registers and spills;
   4. parity: a small-model pipeline (real 5 s / 0.5 s recipe) run with the
      same weights on the card and on the CPU, in float32 with TF32 off:
@@ -390,6 +391,12 @@ def kernel_phase(torch):
     return results
 
 
+def linkage_instance(plan) -> str:
+    """The mangled name's part that marks the linkage kernel's template
+    instance for a launch's layout: linkage_kernel<cent_shared, d_shared>."""
+    return f"linkage_kernelILb{int(plan.cent_shared)}ELb{int(plan.d_shared)}E"
+
+
 def partitions_equal(a: np.ndarray, b: np.ndarray) -> bool:
     """The same partition up to a label bijection; -2 rows exactly equal."""
     if not np.array_equal(a < 0, b < 0):
@@ -437,7 +444,7 @@ def clustering_phase(torch):
 
     cfg = ClusteringConfig()
     thr = cfg.threshold
-    regs, spill = ptxas_report(_cuda_lib.build_log("linkage"), "linkage_kernel")
+    log = _cuda_lib.build_log("linkage")
     results = {}
     for kind, chunks in (("blobs", 128), ("chain", 128), ("blobs", 400), ("chain", 400),
                          ("blobs", 1536)):
@@ -486,6 +493,10 @@ def clustering_phase(torch):
                 f"device_cluster {name}: differs from the host clusterer "
                 f"(num_large {int(card.num_large)}, host {int(host.max()) + 1})",
             )
+        # the launch's layout, and the registers and spills of the kernel's
+        # instantiation for it (centroids, rows of D in shared memory or not)
+        plan = linkage_cuda.linkage_plan(T, d)
+        regs, spill = ptxas_report(log, linkage_instance(plan))
         ms = time_ms(torch, lambda: linkage_cuda.linkage_labels(D0, embt, tvalid, thr))
         plain_ms = time_ms(
             torch, lambda: linkage_cuda.linkage_labels_plain(D0, embt, tvalid, thr),
@@ -513,6 +524,10 @@ def clustering_phase(torch):
             bound_ms=b,
             bound_by=by,
             bound_bytes=nbytes,
+            cluster_blocks=plan.cluster,
+            smem_bytes_per_block=plan.smem_bytes,
+            centroids_in_smem=plan.cent_shared,
+            rows_of_D_in_smem=plan.d_shared,
             registers=regs,
             spill_bytes=spill,
         )

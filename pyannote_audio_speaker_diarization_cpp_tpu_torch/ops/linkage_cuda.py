@@ -6,9 +6,9 @@ Replaces the merge loop ``_linkage_labels`` of the JAX package
 merges with an early exit that depends on the data. The JAX package wrote no
 Pallas kernel for it; in eager PyTorch each iteration would be about a dozen
 launches and a host read of ``done``, so on the card the whole loop is one
-launch of ``csrc/linkage.cu``, whose header says what bounds it and how it is
-laid out. The plain version is the same loop in PyTorch, one iteration a
-Python step: the CPU path and the kernel's oracle.
+launch of ``csrc/linkage.cu`` (one thread-block cluster), whose header says
+what bounds it and how it is laid out. The plain version is the same loop in
+PyTorch, one iteration a Python step: the CPU path and the kernel's oracle.
 
 Both take the initial (T, T) distance matrix D0 from the caller (a Gram
 product, clustering/device.py ``initial_distances``) and compute every later
@@ -33,11 +33,43 @@ from . import _cuda_lib
 
 MAX_ROWS = 1536  # the largest merge loop the pipeline sends to the card
 MAX_DIM = 1024
-# linkage_launch(D0, embt, tvalid, D, cent, state, rep, steps, merges, dists, T, d, thr,
-# stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
+# linkage_launch(D0, embt, tvalid, D, cent, rep, steps, merges, dists, T, d, thr, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
     ctypes.c_void_p
 ]
+
+
+class LinkagePlan(NamedTuple):
+    """The kernel's launch for T rows of d values on the current card."""
+
+    cluster: int  # blocks of the one thread-block cluster
+    smem_bytes: int  # dynamic shared memory a block
+    cent_shared: bool  # the centroids in shared memory (else global scratch)
+    d_shared: bool  # the rows of D in shared memory (else global scratch)
+
+
+def linkage_plan(T: int, d: int, lib=None) -> LinkagePlan:
+    """How ``csrc/linkage.cu`` (or the built library ``lib`` of a variant
+    of it) lays out T rows of d values on the current CUDA device; raises if
+    it does not take them."""
+    lib = lib or _cuda_lib.library("linkage")
+    out = [ctypes.c_int(0) for _ in range(4)]
+    fn = lib.linkage_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    _cuda_lib.check("linkage", fn(T, d, *(ctypes.byref(o) for o in out)))
+    cluster, smem, cent_shared, d_shared = (o.value for o in out)
+    return LinkagePlan(cluster, smem, bool(cent_shared), bool(d_shared))
+
+
+def d_scratch(D0: torch.Tensor, lib=None) -> torch.Tensor:
+    """Global scratch for the rows of D when they do not fit in shared
+    memory: T rows of the kernel's row stride (T rounded up to whole float4s)."""
+    lib = lib or _cuda_lib.library("linkage")
+    fn = lib.linkage_row_stride
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return D0.new_empty(D0.shape[0] * fn(D0.shape[0]))
 
 
 class LinkageResult(NamedTuple):
@@ -180,27 +212,26 @@ def linkage_labels(
             f"values, got {T} x {d}"
         )
     dev = embt.device
-    D = torch.empty_like(D0)  # scratch: the maintained distance matrix
-    centroids = torch.empty_like(embt)  # scratch: the slots' centroids
     rep = torch.empty(T, dtype=torch.int32, device=dev)
     steps = torch.empty(1, dtype=torch.int32, device=dev)
     merges = torch.empty((T - 1, 2), dtype=torch.int32, device=dev)
     dists = torch.empty(T - 1, dtype=torch.float32, device=dev)
     lib = _cuda_lib.library("linkage")
-    # scratch: the per-slot state (row minima and their columns, sizes,
-    # subtree maxima, the new row of D, flags, leaves' slots and rep)
-    state = torch.empty(lib.linkage_state_words() * T, dtype=torch.int32, device=dev)
     fn = lib.linkage_launch
     fn.restype = ctypes.c_int
     fn.argtypes = LAUNCH_ARGTYPES
     with torch.cuda.device(dev):
+        plan = linkage_plan(T, d)
+        # global scratch for what does not fit in the blocks' shared memory:
+        # the rows of D (each padded to whole float4s), the slots' centroids
+        D = None if plan.d_shared else d_scratch(D0, lib)
+        centroids = None if plan.cent_shared else torch.empty_like(embt)
         err = fn(
             D0.data_ptr(),
             embt.data_ptr(),
             tvalid.view(torch.uint8).data_ptr(),
-            D.data_ptr(),
-            centroids.data_ptr(),
-            state.data_ptr(),
+            None if D is None else D.data_ptr(),
+            None if centroids is None else centroids.data_ptr(),
             rep.data_ptr(),
             steps.data_ptr(),
             merges.data_ptr(),

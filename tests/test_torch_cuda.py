@@ -255,12 +255,14 @@ def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
 
 
 def _linkage_rows(kind, T, seed, d=192):
-    """(embt (T, d) L2-normalised, tvalid (T,)) for the merge-loop kernel:
+    """(embt (T, d), L2-normalised but "ties", tvalid (T,)) for the merge-loop kernel:
     blobs around 5 centres with 10 % of the rows invalid (tight: 0.0125 of
     noise to a centre's scale; chain: 0.3, a long run of merges whose order
     matters; cut: 0.8, the threshold cuts the tree into many flat clusters),
-    one valid row, all rows identical (every distance ties), or rows too far
-    apart to merge."""
+    one valid row, all rows identical (every distance ties), chain rows each
+    repeated about four times (equal distances in several columns of a row),
+    motifs where a merge ties a row's minimum at a lower column, or rows too
+    far apart to merge."""
     rng = np.random.default_rng(seed)
     tvalid = np.ones(T, bool)
     noise = {"blobs": 0.05, "chain": 1.2, "cut": 3.2}
@@ -274,6 +276,19 @@ def _linkage_rows(kind, T, seed, d=192):
         tvalid[T // 3] = True
     elif kind == "identical":
         x = np.repeat(rng.normal(size=(1, d)), T, axis=0)
+    elif kind == "dups":  # chain rows, each drawn from T // 4 distinct ones
+        centres = rng.normal(size=(5, d)) * 4
+        base = centres[rng.integers(0, 5, T // 4 + 1)] + 1.2 * rng.normal(size=(T // 4 + 1, d))
+        x = base[rng.integers(0, T // 4 + 1, T)]
+    elif kind == "ties":  # motifs of 4 points, 1 apart, not normalised (exact sums):
+        # the pair (-1, 4), (1, 4) / 16 merges into (0, 4) / 16, as far from
+        # (0, 0) as (4, 0) / 16 is, at a lower column: a tie the row's first
+        # column must follow
+        x = np.zeros((T, d))
+        m = np.arange(T) // 4
+        x[:, 0] = m + np.array([0, -1, 1, 4])[np.arange(T) % 4] / 16
+        x[:, 1] = np.array([0, 4, 4, 0])[np.arange(T) % 4] / 16
+        return torch.from_numpy(x.astype(np.float32)), torch.from_numpy(tvalid)
     else:  # "apart": near-orthogonal unit rows, ~1.41 apart
         x = rng.normal(size=(T, d))
     x = x / np.linalg.norm(x, axis=1, keepdims=True)
@@ -281,7 +296,9 @@ def _linkage_rows(kind, T, seed, d=192):
     return torch.from_numpy(x.astype(np.float32)), torch.from_numpy(tvalid)
 
 
-# (kind, T): the edges, the main path's size, the capped size and the largest
+# (kind, T): the edges, the main path's size, the capped size and the largest;
+# ties in several columns; T that the cluster size does not divide, and T
+# below it
 _LINKAGE_CASES = [
     ("one_valid", 128),
     ("identical", 128),
@@ -292,6 +309,11 @@ _LINKAGE_CASES = [
     ("blobs", 1024),
     ("chain", 1024),
     ("blobs", 1536),
+    ("dups", 384),
+    ("ties", 384),
+    ("chain", 100),
+    ("blobs", 1000),
+    ("blobs", 12),
 ]
 
 
@@ -321,6 +343,30 @@ def test_linkage_kernel_matches_plain(cuda, kind, T):
         assert want_steps == 1 and torch.equal(want, torch.arange(T, dtype=torch.int32))
     if kind == "identical":
         assert want_steps == T - 1 and len(set(want.tolist())) == 1
+
+
+@pytest.mark.cuda
+def test_linkage_kernel_layouts(cuda):
+    """Each layout of the kernel's state against the plain loop: centroids
+    and rows of D in shared memory (T = 384), centroids alone (T = 1024),
+    neither (the widest rows the wrapper takes, d = 1024, at T = 1536)."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering.device import (
+        initial_distances,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import ClusteringConfig
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import linkage_cuda
+
+    thr = ClusteringConfig().threshold
+    for T, d, layout in ((384, 192, (True, True)), (1024, 192, (True, False)),
+                         (linkage_cuda.MAX_ROWS, linkage_cuda.MAX_DIM, (False, False))):
+        plan = linkage_cuda.linkage_plan(T, d)
+        assert (plan.cent_shared, plan.d_shared) == layout
+        embt, tvalid = _linkage_rows("chain", T, seed=T + d, d=d)
+        D0 = initial_distances(embt.to(cuda), tvalid.to(cuda))
+        got = linkage_cuda.linkage_labels(D0, embt.to(cuda), tvalid.to(cuda), thr)
+        plain = linkage_cuda.linkage_labels_plain(D0.cpu(), embt, tvalid, thr)
+        for field, a, b in zip(plain._fields, got, plain):
+            assert torch.equal(a.cpu(), b), (T, d, field)
 
 
 @pytest.mark.cuda
@@ -355,6 +401,9 @@ def test_linkage_kernel_rejects_inputs(cuda):
     D0 = torch.zeros((1600, 1600), device=cuda)
     with pytest.raises(ValueError):  # more rows than the kernel holds
         linkage_cuda.linkage_labels(D0, embt, tvalid, 0.7)
+    wide = torch.zeros((64, linkage_cuda.MAX_DIM + 1), device=cuda)
+    with pytest.raises(ValueError):  # wider rows than the kernel holds
+        linkage_cuda.linkage_labels(D0[:64, :64].contiguous(), wide, tvalid[:64], 0.7)
     with pytest.raises(ValueError):  # float64
         linkage_cuda.linkage_labels(D0[:64, :64].double(), embt[:64].double(), tvalid[:64], 0.7)
     with pytest.raises(ValueError):  # not contiguous
