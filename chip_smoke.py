@@ -14,9 +14,10 @@ Phases, each a JSON line on stdout:
      the least time the card could take for the same work; for pack also
      its time with the L2 cache flushed before each call, and the device
      kernels one call runs with their run time under torch.profiler; for
-     pack, log-mel and bf16 ASP their registers and spills (log-mel and
-     bf16 ASP: blocks an SM), and for log-mel its distance from a float64
-     log-mel beside the plain version's;
+     pack, log-mel and both ASP kernels their registers and spills (log-mel
+     and ASP: blocks an SM), for log-mel its distance from a float64
+     log-mel beside the plain version's, and for float32 ASP its bound in
+     3xTF32 with its bound on the float32 FMA units beside it;
   3. clustering: the merge-loop kernel (csrc/linkage.cu, the whole loop in
      one launch of one thread-block cluster) against its plain version on
      the card and on the CPU, on embeddings around 5 centres (d = 192, 10 %
@@ -50,7 +51,16 @@ Phases, each a JSON line on stdout:
      valid and walked) and its float16 activations checked; then one more
      under torch.profiler (device time by kernel, the port's own kernels by
      name);
-  7. the kernel summary line, the nvidia-smi line, and last
+  7. float32_requests: the same model at full width with compute_dtype and
+     transfer_dtype float32 at precision "highest" (the parity mode): a
+     warm-up and two timed 59 s requests, each launching the float32 ASP
+     kernel 12 times and the bf16 one never, stage 3 on the device; one
+     more with its ASP inputs watched (finite embeddings, the kernel held
+     against its plain version on one batch's real inputs, its profiled time
+     there beside the FMA kernel's, built from scripts/asp_f32_fma.cu), and
+     one more under torch.profiler (the kernel's device time in a request);
+  8. the kernel summary line (float32 ASP's launches from phase 7, the
+     others' from phase 6), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -362,7 +372,9 @@ def kernel_phase(torch):
         size = x.element_size()
         nbytes = size * (valid * (C + A) + C * A + 2 * BATCH * C) + 4.0 * (C + BATCH * T)
         flops = 2.0 * C * A * valid
-        b, by = bound_ms(nbytes, {dtype: flops})
+        # float32: the product as three TF32 products (3xTF32); its bound on
+        # the float32 FMA units printed beside it
+        b, by = bound_ms(nbytes, {"tfloat32": 3 * flops} if dtype == "float32" else {dtype: flops})
         results[f"asp_pool_{dtype}"] = dict(
             max_abs_err=err,
             tolerance=f"mean rtol/atol {tol['mean']}, std rtol/atol {tol['std']}",
@@ -376,16 +388,23 @@ def kernel_phase(torch):
             bound_by=by,
             shapes=f"x (32, 3072, {T}) {dtype}, a_tanh (32, 128, {T}) -> 2 x (32, 3072)",
         )
-    # the bf16 kernel's registers and spills (nvcc -Xptxas -v) and occupancy
-    regs, spill = ptxas_report(_cuda_lib.build_log("asp"), "asp_bf16_kernel")
-    blocks = ctypes.c_int(0)
-    occupancy = _cuda_lib.library("asp").asp_bf16_blocks_per_sm
-    occupancy.restype = ctypes.c_int
-    occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    _cuda_lib.check("asp", occupancy(A, T, ctypes.byref(blocks)))
-    results["asp_pool_bfloat16"].update(
-        registers=regs, spill_bytes=spill, blocks_per_sm=blocks.value
-    )
+    r = results["asp_pool_float32"]
+    r["bound_ms_fma"], _ = bound_ms(0.0, {"float32": r["bound_flops"]})
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    # each kernel's registers and spills (nvcc -Xptxas -v) and occupancy
+    lib = _cuda_lib.library("asp")
+    for dtype, kernel, occupancy, args in (
+        ("bfloat16", "asp_bf16_kernel", lib.asp_bf16_blocks_per_sm, (A, T)),
+        ("float32", "asp_f32_kernel", lib.asp_f32_blocks_per_sm, (T,)),
+    ):
+        regs, spill = ptxas_report(_cuda_lib.build_log("asp"), kernel)
+        blocks = ctypes.c_int(0)
+        occupancy.restype = ctypes.c_int
+        occupancy.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+        _cuda_lib.check("asp", occupancy(*args, ctypes.byref(blocks)))
+        results[f"asp_pool_{dtype}"].update(
+            registers=regs, spill_bytes=spill, blocks_per_sm=blocks.value
+        )
     for name, r in results.items():
         emit({"kernel": name, **r})
     return results
@@ -993,7 +1012,7 @@ def profile_request(torch, pipe, clip):
             k in name
             for k in (
                 "asp_bf16_kernel",
-                "asp_kernel",
+                "asp_f32_kernel",
                 "log_mel_kernel",
                 "pack_kernel",
                 "linkage_kernel",
@@ -1012,6 +1031,206 @@ def profile_request(torch, pipe, clip):
             ],
         }
     )
+
+
+def fma_asp_kernel(torch):
+    """The first slice's float32 ASP kernel (scripts/asp_f32_fma.cu), built
+    as scripts/asp_cuda_ablation.py builds it: fn(x, a_tanh, w, bias, mask)
+    lays the inputs out as that kernel reads them and returns run(), which
+    launches it alone and returns (mean, std)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "asp_cuda_ablation", os.path.join(HERE, "scripts", "asp_cuda_ablation.py")
+    )
+    ablation = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablation)
+    lib = ablation.build(["f32_fma"], "")["f32_fma"][0]
+    launch = ablation.fma_launcher(lib)
+
+    def prepare(x, a_tanh, w, bias, mask, eps=1e-12):
+        B, C, T = x.shape
+        a_tanh, wt = a_tanh.contiguous(), w.t().contiguous()
+        bias, mask = bias.float().contiguous(), mask.float().contiguous()
+        mean = torch.empty((B, C), dtype=torch.float32, device=x.device)
+        std = torch.empty_like(mean)
+
+        def run():
+            err = launch(x.data_ptr(), a_tanh.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                         mask.data_ptr(), mean.data_ptr(), std.data_ptr(), B, C,
+                         a_tanh.shape[1], T, eps, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"the FMA ASP kernel failed to launch (cudaError {err})")
+            return mean, std
+
+        return run
+
+    return prepare
+
+
+def float32_requests_phase(torch, counters):
+    """The float32 path at full width: the default PyanNet and ECAPA-TDNN with
+    seeded random weights, compute_dtype and transfer_dtype float32 at
+    precision "highest" (TF32 off), on the 59 s clip: one warm-up request and
+    two timed ones, each launching the float32 ASP kernel once a stage-2
+    batch (12) and the bf16 one never, stage 3 on the device. Then one more
+    request with its ASP inputs watched: the embeddings finite, and the
+    kernel held against its plain version on one batch's real inputs, with
+    its time there beside the FMA kernel's on the same inputs; then one more
+    under torch.profiler (the kernel's device time in a request). Kernel times
+    on the batch are CUDA-event device times, as in the kernel phase.
+    ``counters``: as main_path_phase's. Returns the launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import asp_cuda
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+        precision_scope,
+    )
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    pipe = SpeakerDiarizationPipeline(cfg, seed=0, precision="highest")
+    seg = pipe.config.segmentation
+    clip = synth_clip(59.0, seed=0, quantize=False)
+    padded = pipe.chunk_lattice(chunk_count(len(clip), seg.window_size, seg.step_size))
+    batches = padded * seg.num_speakers // pipe.emb_batch
+    expected = dict(
+        {name: batches for name in counters},
+        asp_pool=0,  # the bf16 kernel
+        linkage=1,
+    )
+
+    def count():
+        return {name: getattr(fn, attr) for name, (fn, attr, _) in counters.items()}
+
+    for fn, attr, _ in counters.values():
+        setattr(fn, attr, 0)
+    for i in range(3):
+        before = count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        annotation = pipe(clip)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {name: n - before[name] for name, n in count().items()}
+        check(
+            launched == expected,
+            f"float32 path: launches {launched}, expected {expected} per request",
+        )
+        t = pipe.timings
+        emit(
+            {
+                "float32_request": i,
+                "warmup": i == 0,
+                "config": "compute_dtype and transfer_dtype float32, precision highest",
+                "audio_s": len(clip) / seg.sample_rate,
+                "wall_ms": wall_ms,
+                "host_s": {"segmentation": t.segmentation, "fetch": t.fetch},
+                "device_ms": {
+                    "stage1": t.stage1_ms,
+                    "stage2": t.stage2_ms,
+                    "stage3": t.stage3_ms,
+                },
+                "stage3_route": "device",
+                "turns": len(annotation.turns()),
+                "launches": launched,
+            }
+        )
+    totals = count()
+
+    # one more request with the ASP calls watched: the first batch's inputs
+    # kept for the kernel against its plain version
+    real_asp, seen = ecapa.asp_pool, []
+
+    def watched_asp(x, a_tanh, w, bias, mask, eps=1e-12):
+        if not seen:
+            seen.append((x, a_tanh, w, bias, mask, eps))
+        return real_asp(x, a_tanh, w, bias, mask, eps)
+
+    ecapa.asp_pool = watched_asp
+    try:
+        with precision_scope(pipe.precision):
+            pending = pipe._dispatch(clip)
+    finally:
+        ecapa.asp_pool = real_asp
+    torch.cuda.synchronize()
+    check(pending["device_clu"] is not None, "float32 path: stage 3 did not take the device route")
+    emb = pending["emb"].float()
+    rows = pending["num_chunks"] * seg.num_speakers
+    check(
+        emb.dtype == torch.float32
+        and tuple(emb.shape) == (padded * seg.num_speakers, pipe.ecapa_cfg.emb_dim)
+        and bool(torch.isfinite(emb[:rows][~pending["too_short"][:rows]]).all()),
+        f"float32 path: embeddings {tuple(emb.shape)} not finite or misshapen",
+    )
+    x, a_tanh, w, bias, mask, eps = seen[0]
+    check(x.dtype == torch.float32, f"float32 path: ASP ran on {x.dtype}")
+    # the request's tensors are inference tensors; W is a parameter
+    with torch.inference_mode(), precision_scope(pipe.precision):
+        fma = fma_asp_kernel(torch)(x, a_tanh, w, bias, mask, eps)
+        got = asp_cuda.asp_pool(x, a_tanh, w, bias, mask, eps)
+        want = asp_cuda.asp_pool_plain(x, a_tanh, w, bias, mask, eps)
+        old = fma()
+        torch.cuda.synchronize()
+        err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+        err_fma = max(float((g - p).abs().max()) for g, p in zip(old, want))
+        check(
+            within(torch, got[0], want[0], 1e-5, 1e-5) and within(torch, got[1], want[1], 1e-4, 1e-5),
+            f"float32 path: the ASP kernel differs from its plain version on a request's "
+            f"inputs (max abs {err})",
+        )
+        kernel_ms = time_ms(torch, lambda: asp_cuda.asp_pool(x, a_tanh, w, bias, mask, eps))
+        fma_ms = time_ms(torch, fma)
+    valid = mask > 0
+    emit(
+        {
+            "float32_asp_inputs": "one stage-2 batch of a float32 request, on the card",
+            "shapes": {"x": list(x.shape), "a_tanh": list(a_tanh.shape)},
+            "a_tanh_row_stride": a_tanh.stride(1),
+            "valid_share": float(valid.float().mean()),
+            "walked_share": float(walk_ends(torch, valid).sum()) / valid.numel(),
+            "max_abs_err": err,
+            "tolerance": "mean rtol/atol 1e-5, std rtol 1e-4 / atol 1e-5",
+            "kernel_ms": kernel_ms,
+            "fma_kernel_ms": fma_ms,
+            "fma_kernel_max_abs_err": err_fma,
+        }
+    )
+
+    # one more request under torch.profiler: the kernel's device time in it
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(clip)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    runs = [
+        (e.time_range.end - e.time_range.start) / 1e3 for e in device if "asp_f32_kernel" in e.name
+    ]
+    check(bool(runs), "float32 profile: no run of the float32 ASP kernel was traced")
+    by_name = {}
+    for e in device:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    emit(
+        {
+            "float32_profile": "one float32 59 s request under torch.profiler",
+            "wall_ms": wall_ms,
+            "device_busy_ms": union_length((e.time_range.start, e.time_range.end) for e in device)
+            / 1e3,
+            "asp_f32_kernel_ms": sum(runs),
+            "asp_f32_kernel_runs_traced": len(runs),
+            "launches": batches,
+            "fma_kernel_ms_times_launches": batches * fma_ms,
+            "top": [{"name": n[:90], "device_ms": ms, "calls": c} for n, (ms, c) in top],
+        }
+    )
+    return totals
 
 
 def main() -> int:
@@ -1065,6 +1284,8 @@ def main() -> int:
         "linkage": (linkage_cuda.linkage_labels, "launches", 1),
     }
     totals, expected = main_path_phase(torch, counters)
+    # this slice's path: the float32 kernel, counted from 0 over its requests
+    totals["asp_pool_float32"] = float32_requests_phase(torch, counters)["asp_pool_float32"]
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
     tpu = "pyannote_audio_speaker_diarization_cpp_tpu"
     rows = [

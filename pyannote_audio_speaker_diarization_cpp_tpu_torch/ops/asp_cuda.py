@@ -2,12 +2,13 @@
 version.
 
 Replaces the TPU kernel ``asp_pool_pallas`` (JAX package ops/asp_pallas.py).
-The kernels are in ``csrc/asp.cu``, one per type of x: bfloat16 (the main
-path) runs the score product on the tensor cores and stops each row at its
-last valid frame; float32 keeps float32-exact products on the FMA units.
-The file's header says what bounds them on the H100 (the bytes of x) and how
-they are laid out. Unlike the TPU kernel they take any channel count C (the
-channel edge is masked).
+The kernels are in ``csrc/asp.cu``, one per type of x, both with the score
+product on the tensor cores and each row walked only to its last valid
+frame: bfloat16 (the main path) on ``mma.sync``; float32 on ``wgmma`` in
+3xTF32 (three TF32 products per float32 product, as accurate as float32).
+The file's header says what bounds them on the H100 (bf16: the bytes of x;
+float32: the operations) and how they are laid out. Unlike the TPU kernel
+they take any channel count C (the channel edge is masked).
 """
 
 from __future__ import annotations
@@ -52,10 +53,12 @@ def _frame_rows(B: int, A: int, T: int, like: torch.Tensor) -> torch.Tensor:
 
 def attention_tanh(attn: torch.Tensor) -> torch.Tensor:
     """tanh(attn) for ``asp_pool``'s a_tanh, (B, A, T), laid out as the
-    kernel of its dtype reads it: for bfloat16, rows padded to a multiple of
-    8 frames so that each starts 16-byte aligned (written by the one tanh
-    launch); otherwise, or where autograd records the call, contiguous."""
-    if attn.dtype != torch.bfloat16 or (torch.is_grad_enabled() and attn.requires_grad):
+    kernels read it: for bfloat16 and float32, rows padded to a multiple of 8
+    frames (written by the one tanh launch), so each starts 16-byte aligned
+    for the bf16 kernel's copies and a float32 row's 8-frame segments fill
+    whole 32-byte sectors; for other dtypes, or where autograd records the
+    call, contiguous."""
+    if attn.dtype not in _BF16_OR_F32 or (torch.is_grad_enabled() and attn.requires_grad):
         return torch.tanh(attn).contiguous()
     return torch.tanh(attn, out=_frame_rows(*attn.shape, like=attn))
 
@@ -71,16 +74,18 @@ def asp_pool(
     """Fused ASP tail.
 
     x:      (B, C, T)  pooled-over activations, float32 or bfloat16
-    a_tanh: (B, A, T)  tanh of the attention TDNN output, x's dtype (bfloat16:
-                       best as ``attention_tanh`` lays it out, else copied so)
+    a_tanh: (B, A, T)  tanh of the attention TDNN output, x's dtype, best as
+                       ``attention_tanh`` lays it out (bfloat16: else copied
+                       so; float32: any rows of frames at one stride)
     w:      (C, A)     the 1x1 conv weight expanding A -> C, x's dtype
     bias:   (C,)       its bias (any float dtype; used in float32)
     mask:   (B, T)     > 0 on valid frames (length mask), any float dtype
     Returns (mean, std), each (B, C) in x's dtype.
 
     On a CUDA tensor this launches the kernel of x's dtype in
-    ``csrc/asp.cu`` (bfloat16 takes A up to its ``asp_max_attention()``,
-    256) or raises; on a CPU tensor it runs ``asp_pool_plain``.
+    ``csrc/asp.cu`` or raises: bfloat16 takes A up to
+    ``asp_max_attention()`` (256), float32 up to ``asp_max_attention_f32()``
+    (128). On a CPU tensor it runs ``asp_pool_plain``.
     """
     if x.dim() != 3 or a_tanh.dim() != 3 or w.dim() != 2 or mask.dim() != 2:
         raise ValueError("asp_pool wants x (B,C,T), a_tanh (B,A,T), w (C,A), mask (B,T)")
@@ -161,16 +166,32 @@ def asp_pool(
             int(mask.dtype == torch.bfloat16),
         )
     else:
-        a_tanh = a_tanh.contiguous()
-        wt = w.t().contiguous()  # (A, C): coalesced weight loads in the kernel
+        lib.asp_max_attention_f32.restype = ctypes.c_int
+        lib.asp_max_attention_f32.argtypes = []
+        max_a = lib.asp_max_attention_f32()
+        if A > max_a:
+            raise ValueError(f"asp_pool: the float32 kernel takes A <= {max_a}, got A {A}")
+        # a_tanh: rows of frames at one stride lda >= T, as attention_tanh
+        # pads them or contiguous; any other layout is copied into the padded
+        # one
+        lda = a_tanh.stride(1)
+        if not (a_tanh.stride(2) == 1 and lda >= T and a_tanh.stride(0) == A * lda):
+            a_tanh = _frame_rows(B, A, T, like=a_tanh).copy_(a_tanh)
+            lda = a_tanh.stride(1)
+        w = w.contiguous()
         bias = bias.to(torch.float32).contiguous()
         mask = mask.to(torch.float32).contiguous()
         fn = lib.asp_pool_f32_launch
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 2
+            + [ctypes.c_int]
+            + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p]
         )
-        args = (x.data_ptr(), a_tanh.data_ptr(), wt.data_ptr(), bias.data_ptr(), mask.data_ptr())
+        args = (x.data_ptr(), a_tanh.data_ptr(), lda, w.data_ptr(), bias.data_ptr(),
+                mask.data_ptr())
     with torch.cuda.device(x.device):
         err = fn(*args, mean.data_ptr(), std.data_ptr(), B, C, A, T, eps, _cuda_lib.stream_of(x))
     _cuda_lib.check("asp", err)

@@ -51,11 +51,14 @@ receiver's mbarrier, an acquire wait), and 4096 dependent loads of one
 thread from another block's shared memory over DSMEM (a cluster of 2 and of
 16).
 
-Prints one JSON line per variant and input (ms: device time per call, timed
-as ``chip_smoke.py`` times a kernel; steps run; us a step; which fields
-differ from the plain version; registers and spill bytes; the kernel's
-cluster size and shared memory a block), one for the probe (us a barrier or
-a load), then the card's name and power limit as nvidia-smi reports them.
+Prints one JSON line per input (its train rows and steps, the plain loop's
+time on the card and the least time the bytes its steps read take, both as
+``chip_smoke.py``'s clustering phase takes them), one per variant and input
+(ms: device time per call, timed as ``chip_smoke.py`` times a kernel; steps
+run; us a step; which fields differ from the plain version; registers and
+spill bytes; the kernel's cluster size and shared memory a block), one for
+the probe (us a barrier or a load), then the card's name and power limit as
+nvidia-smi reports them.
 ``--probe`` builds everything but runs the probe alone.
 """
 
@@ -381,6 +384,7 @@ def main() -> int:
     from chip_smoke import (
         NOISE,
         blob_embeddings,
+        bound_ms,
         linkage_instance,
         nvidia_smi_line,
         ptxas_report,
@@ -426,10 +430,22 @@ def main() -> int:
     names = (*VARIANTS, *OLD)
     libc = ctypes.CDLL(None)
     for kind, chunks, flat, valid in inputs():
-        embt, tvalid, _, _ = devclu.train_rows(flat, valid, cfg.max_num_embeddings)
+        embt, tvalid, _, live = devclu.train_rows(flat, valid, cfg.max_num_embeddings)
         T = embt.shape[0]
         D0 = devclu.initial_distances(embt, tvalid)
         want = linkage_cuda.linkage_labels_plain(D0, embt, tvalid, cfg.threshold)
+        # the plain loop's time and the bytes bound, as chip_smoke.py's
+        # clustering phase takes them: each step reads the live slots'
+        # centroids, a row of D and the row minima
+        steps, d = int(want.steps), embt.shape[1]
+        nbytes = 4.0 * sum((int(live) - s) * d + 2 * T for s in range(steps))
+        plain_ms = time_ms(
+            torch, lambda: linkage_cuda.linkage_labels_plain(D0, embt, tvalid, cfg.threshold),
+            reps=3, warmup=1, queued=False,
+        )
+        print(json.dumps({"input": kind, "T": T, "train_rows": int(live), "steps": steps,
+                          "plain_ms": plain_ms, "bound_ms_bytes": bound_ms(nbytes, {})[0]}),
+              flush=True)
         rows = {}
         print(json.dumps({"profile_of": kind, "T": T}), flush=True)
         for name in names:

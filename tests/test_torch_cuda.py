@@ -195,26 +195,34 @@ def test_log_mel_kernel_rejects_geometry(cuda):
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (dtype, B, A, C, T, mask kind): the main path's shapes in both types, then
-# the bf16 kernel's edges: T not a multiple of its 64-frame tile, the channel
-# edge (C = 200), K padding (A = 40), one row, a row whose only valid frame
-# is its last, masks with holes, mask, bias and a_tanh as the model passes
-# them (bf16, a_tanh rows padded to 16 bytes), and rows that all start at an
-# odd element (T even, x and a_tanh at an odd storage offset)
-_ASP_CASES = [
-    (dtype, 32, 128, C, 501, kind)
-    for dtype in (_F32, _BF16)
-    for C in (3072, 200)
-    for kind in ("lengths", "holes")
-] + [
-    (_BF16, 8, 128, 256, 37, "lengths"),
-    (_BF16, 8, 40, 3072, 501, "lengths"),
-    (_BF16, 4, 40, 200, 37, "holes"),
-    (_BF16, 1, 128, 3072, 501, "lengths"),
-    (_BF16, 4, 128, 200, 501, "last_only"),
-    (_BF16, 4, 128, 384, 37, "last_only"),
-    (_BF16, 8, 128, 3072, 501, "bf16_mask_bias"),
-    (_BF16, 4, 40, 200, 128, "odd_offset"),
+# each kernel's edges: T not a multiple of the 64-frame tile, the channel
+# edge (C = 200), K padding (A = 40; A = 37, W rows not 16-byte aligned), one row, a row whose only valid frame
+# is its last, masks with holes, rows that all start at an odd element (x
+# and a_tanh at an odd storage offset), a_tanh in rows padded to 8 frames as
+# the model lays it out (contiguous elsewhere), and for bf16 mask and bias
+# as the model passes them (bf16)
+_ASP_EDGES = [
+    (8, 128, 256, 37, "lengths"),
+    (8, 40, 3072, 501, "lengths"),
+    (4, 40, 200, 37, "holes"),
+    (4, 37, 200, 37, "holes"),
+    (1, 128, 3072, 501, "lengths"),
+    (4, 128, 200, 501, "last_only"),
+    (4, 128, 384, 37, "last_only"),
+    (4, 40, 200, 128, "odd_offset"),
+    (8, 128, 3072, 501, "padded_rows"),
+    (4, 40, 200, 37, "padded_rows"),
 ]
+_ASP_CASES = (
+    [
+        (dtype, 32, 128, C, 501, kind)
+        for dtype in (_F32, _BF16)
+        for C in (3072, 200)
+        for kind in ("lengths", "holes")
+    ]
+    + [(dtype, *edge) for dtype in (_F32, _BF16) for edge in _ASP_EDGES]
+    + [(_BF16, 8, 128, 3072, 501, "bf16_mask_bias")]
+)
 
 
 def _at_odd_offset(t):
@@ -236,11 +244,13 @@ def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
     x, a, w = x.to(dtype), a.to(dtype), w.to(dtype)
     if kind == "bf16_mask_bias":  # as the model passes them
         b, mask = b.to(dtype), mask.to(dtype)
+    if kind in ("bf16_mask_bias", "padded_rows"):
         rows = torch.empty((B, A, -(-T // 8) * 8), dtype=dtype, device=cuda)[..., :T]
         a = rows.copy_(a)
     if kind == "odd_offset":
         x, a = _at_odd_offset(x), _at_odd_offset(a)
-        assert x.data_ptr() % 4 == 2 and a.data_ptr() % 4 == 2
+        size = x.element_size()
+        assert x.data_ptr() % (2 * size) == size and a.data_ptr() % (2 * size) == size
     counter = "float32_launches" if dtype == _F32 else "bfloat16_launches"
     before = getattr(asp_cuda.asp_pool, counter)
     mean, std = asp_cuda.asp_pool(x, a, w, b, mask)
@@ -252,6 +262,20 @@ def test_asp_kernel_matches_plain(cuda, dtype, B, A, C, T, kind):
     )
     torch.testing.assert_close(mean.float(), want_mean.float(), rtol=tol["mean"][0], atol=tol["mean"][1])
     torch.testing.assert_close(std.float(), want_std.float(), rtol=tol["std"][0], atol=tol["std"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_asp_kernel_rejects_attention_above_its_limit(cuda, dtype):
+    lib = asp_cuda._cuda_lib.library("asp")
+    limit = lib.asp_max_attention_f32() if dtype == _F32 else lib.asp_max_attention()
+    x, a, w, b, mask = (
+        torch.from_numpy(v).to(cuda) for v in _asp_inputs(2, limit + 1, 128, 64, seed=3)
+    )
+    before = (asp_cuda.asp_pool.float32_launches, asp_cuda.asp_pool.bfloat16_launches)
+    with pytest.raises(ValueError):
+        asp_cuda.asp_pool(x.to(dtype), a.to(dtype), w.to(dtype), b, mask)
+    assert (asp_cuda.asp_pool.float32_launches, asp_cuda.asp_pool.bfloat16_launches) == before
 
 
 def _linkage_rows(kind, T, seed, d=192):

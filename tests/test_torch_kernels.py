@@ -498,18 +498,16 @@ def test_asp_plain_any_channel_count_matches_jnp(C):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_tanh_layout(dtype):
-    """bf16: rows padded to 8 frames, so each starts 16-byte aligned for the
-    bf16 kernel's copies; float32, or a call autograd records: contiguous.
-    The values are torch.tanh's either way."""
+    """bf16 and float32: rows padded to 8 frames, so each starts 16-byte
+    aligned for the kernels' reads; a call autograd records, or another
+    dtype: contiguous. The values are torch.tanh's either way."""
     attn = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 5, 37)).astype(np.float32))
     attn = attn.to(dtype)
     got = asp_cuda.attention_tanh(attn)
     assert torch.equal(got, torch.tanh(attn))
-    if dtype == torch.bfloat16:
-        assert got.stride() == (5 * 40, 40, 1)
-    else:
-        assert got.is_contiguous()
+    assert got.stride() == (5 * 40, 40, 1)
     assert asp_cuda.attention_tanh(attn.clone().requires_grad_()).is_contiguous()
+    assert asp_cuda.attention_tanh(attn.double()).is_contiguous()
 
 
 def test_asp_plain_takes_padded_attention_rows():
