@@ -59,9 +59,22 @@ Phases, each a JSON line on stdout:
      against its plain version on one batch's real inputs, its profiled time
      there beside the FMA kernel's, built from scripts/asp_f32_fma.cu), and
      one more under torch.profiler (the kernel's device time in a request);
-  8. the kernel summary line (float32 ASP's launches from phase 7, the
-     others' from phase 6), the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
+  8. entry_points: a fresh full-width pipeline's warmup(60) (seconds,
+     buckets, the first request's wall after it), after which every
+     dispatch runs under sync debug mode "error" (as in phases 6 and 7
+     after their first request; the watched request there must count no
+     host wait); map of four clips (59, 30, 12.3 and 59 s) with turns equal
+     to sequential calls, its wall beside their sum (four rounds in
+     turns), peak memory and a profiled map's idle share; run_chunks and
+     stage2_internals against the request's embeddings (within abs 0.02)
+     and the plain pack (equal);
+     SegmentationPipeline and EmbeddingPipeline once each; the CLI in a
+     subprocess, its turns equal to the in-process turns for the same
+     weights (saved as an .npz directory under a temporary directory); and
+     small5s run_with_dumps on the card against the CPU (all 39 names);
+  9. the kernel summary line (launches: float32 ASP's from phase 7, the
+     others' from phase 6, each plus phase 8's), the nvidia-smi line, and
+     last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
 line. It imports nothing of JAX, and fails without a CUDA device or
@@ -584,27 +597,40 @@ def same_turns(a, b) -> bool:
     return len(set(mapping.values())) == len(mapping)
 
 
-def run_small5s(device: str, float32: bool, params=None, device_clustering="auto"):
-    """One request of the small5s test configuration (the real 5 s / 0.5 s
-    recipe, small model widths) on the 12.3 s int16 clip: float32 compute
-    and transfer at precision "highest" (TF32 off), or the defaults (bf16
-    ECAPA trunk, f16 transfer, precision "default"). ``params``: a
-    checkpoint tree, else seeded random weights. ``device_clustering``:
-    "auto" must take the device stage 3, False the host route. Returns its
-    embeddings, too_short flags, segmentations (on the CPU), the device
-    stage 3's clusters (None on the host route) and turns."""
+def strict_dispatch(torch, pipe):
+    """From here on every dispatch of ``pipe`` (``_dispatch``, and
+    ``_run_range`` behind run_chunks and stage2_internals) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host wait for the card
+    while a request is launched raises. Returns ``pipe``."""
+    for name in ("_dispatch", "_run_range"):
+
+        def strict(*args, _launch=getattr(pipe, name), **kwargs):
+            previous = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _launch(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+
+        setattr(pipe, name, strict)
+    return pipe
+
+
+def small5s_pipeline(device: str, float32: bool, params=None, device_clustering="auto"):
+    """The small5s test configuration (the real 5 s / 0.5 s recipe, small
+    model widths, seed 0): float32 compute and transfer at precision
+    "highest" (TF32 off), or the defaults."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ecapa import EcapaConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import PyanNetConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
         SpeakerDiarizationPipeline,
-        precision_scope,
     )
 
     cfg = dataclasses.replace(DEFAULT_CONFIG, chunk_bucket=4)
     if float32:
         cfg = dataclasses.replace(cfg, compute_dtype="float32", transfer_dtype="float32")
-    pipe = SpeakerDiarizationPipeline(
+    return SpeakerDiarizationPipeline(
         cfg,
         params=params,
         seed=0,
@@ -620,6 +646,22 @@ def run_small5s(device: str, float32: bool, params=None, device_clustering="auto
         device=device,
         device_clustering=device_clustering,
     )
+
+
+def run_small5s(device: str, float32: bool, params=None, device_clustering="auto"):
+    """One request of the small5s test configuration (the real 5 s / 0.5 s
+    recipe, small model widths) on the 12.3 s int16 clip: float32 compute
+    and transfer at precision "highest" (TF32 off), or the defaults (bf16
+    ECAPA trunk, f16 transfer, precision "default"). ``params``: a
+    checkpoint tree, else seeded random weights. ``device_clustering``:
+    "auto" must take the device stage 3, False the host route. Returns its
+    embeddings, too_short flags, segmentations (on the CPU), the device
+    stage 3's clusters (None on the host route) and turns."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        precision_scope,
+    )
+
+    pipe = small5s_pipeline(device, float32, params, device_clustering)
     clip = synth_clip(12.3, seed=977, quantize=True)
     with precision_scope(pipe.precision):
         pending = pipe._dispatch(clip)
@@ -773,6 +815,8 @@ def main_path_phase(torch, counters):
         setattr(fn, attr, 0)
     torch.cuda.reset_peak_memory_stats()
     for i in range(3):
+        if i == 1:  # after the warm-up request
+            strict_dispatch(torch, pipe)
         before = count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -891,7 +935,9 @@ def watched_request(torch, pipe, clip):
         return packed, row_lens
 
     # host waits for the card while the request is enqueued, counted by
-    # PyTorch's sync debug mode: all of them, and those inside stage 3
+    # PyTorch's sync debug mode in "warn" (the dispatch itself, not the
+    # strict wrapper): all of them, and those inside stage 3; there must be
+    # none
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines import diarization
 
     real_stage3, in_stage3 = diarization.stage3, []
@@ -908,14 +954,19 @@ def watched_request(torch, pipe, clip):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            pending = pipe._dispatch(clip)
+            pending = type(pipe)._dispatch(pipe, clip)
         finally:
             torch.cuda.set_sync_debug_mode(0)
             ecapa.asp_pool, mk.pack_frames = real_asp, real_pack
             diarization.stage3 = real_stage3
     torch.cuda.synchronize()
     def sync_lines(ws):
-        return [str(w.message).splitlines()[0] for w in ws if "synchroniz" in str(w.message)]
+        # the waits themselves, not the mode's one-time prototype notice
+        return [
+            str(w.message).splitlines()[0]
+            for w in ws
+            if "called a synchronizing" in str(w.message)
+        ]
 
     check(len(in_stage3) == 2, "watched request: stage 3 did not run on the device")
     syncs = sync_lines(caught)
@@ -927,6 +978,7 @@ def watched_request(torch, pipe, clip):
             "first": syncs[:3],
         }
     )
+    check(not syncs, f"watched request: {len(syncs)} host waits in the dispatch")
     keep, row_lens = torch.cat(keeps), torch.cat(lens)
     rows, frames = keep.shape
     n = pipe.config.segmentation.window_size
@@ -1109,6 +1161,8 @@ def float32_requests_phase(torch, counters):
     for fn, attr, _ in counters.values():
         setattr(fn, attr, 0)
     for i in range(3):
+        if i == 1:  # after the warm-up request
+            strict_dispatch(torch, pipe)
         before = count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1233,6 +1287,323 @@ def float32_requests_phase(torch, counters):
     return totals
 
 
+TURN_LINE = re.compile(r"^\[(\d+\.\d{3}) -- (\d+\.\d{3})\] --> Speaker_(\S+)$")
+
+
+def turn_lines(annotation):
+    """The CLI's output lines of an annotation."""
+    return [f"[{t.start:.3f} -- {t.end:.3f}] --> Speaker_{t.label}" for t in annotation.turns()]
+
+
+def counted(torch, counters, fn):
+    """(fn(), the launches each kernel made in it), the counts set to 0
+    just before and read just after; the card is drained on both sides."""
+    for kernel, attr, _ in counters.values():
+        setattr(kernel, attr, 0)
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(kernel, attr) for name, (kernel, attr, _) in counters.items()}
+
+
+def timed(torch, fn):
+    """(fn(), its host wall ms, ended by a wait for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def entry_points_phase(torch, counters):
+    """The pipeline's entry points besides ``__call__`` at full width (the
+    default PyanNet and ECAPA-TDNN, default config, seeded weights):
+    ``warmup(60)`` on a fresh pipeline, then every dispatch under sync debug
+    mode "error"; ``map`` of four clips against sequential calls;
+    ``run_chunks`` and ``stage2_internals`` on the 59 s clip against the
+    request's embeddings and the plain pack; the two sub-pipelines; the CLI
+    in a subprocess against the same weights in process; and the small5s
+    differential dumps on the card against the CPU. Returns each kernel's
+    launches over the phase's paths."""
+    import shutil
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.io.wav import write_wav
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
+        params_to_jax,
+        save_checkpoint,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import pyannet_num_frames
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import masks as mk
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import pack_cuda
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+        finalize_embeddings,
+        to_host,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.embedding import (
+        EmbeddingPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.segmentation import (
+        SegmentationPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.utils import debug_dump, instrumented
+
+    totals = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] += n
+        return launches
+
+    # --- warmup on a fresh pipeline, then the first request -----------------
+    t0 = time.perf_counter()
+    pipe = SpeakerDiarizationPipeline(seed=0)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets = pipe.warmup(60.0)
+    warmup_s = time.perf_counter() - t0
+    strict_dispatch(torch, pipe)
+    seg = pipe.config.segmentation
+    clip = synth_clip(59.0, seed=0, quantize=False)
+    first, first_ms = timed(torch, lambda: pipe(clip))
+    emit(
+        {
+            "entry_points": "warmup(60) on a fresh full-width pipeline, then one 59 s request",
+            "init_s": init_s,
+            "warmup_s": warmup_s,
+            "buckets": buckets,
+            "first_request_wall_ms": first_ms,
+            "first_request_turns": len(first.turns()),
+        }
+    )
+
+    # --- map against sequential calls ---------------------------------------
+    clips = [
+        clip,
+        synth_clip(30.0, seed=1, quantize=True),
+        synth_clip(12.3, seed=977, quantize=True),  # ends on an orphan chunk
+        clip,
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    sequential = [timed(torch, lambda c=c: pipe(c)) for c in clips]
+    sequential_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    (mapped, map_ms), launches = counted(torch, counters, lambda: timed(torch, lambda: pipe.map(clips)))
+    map_peak = torch.cuda.max_memory_allocated() / 2**30
+    add(launches)
+    for i, (got, (want, _)) in enumerate(zip(mapped, sequential)):
+        check(
+            same_turns(turns_of(got), turns_of(want)),
+            f"map: clip {i}'s turns differ from its sequential call's",
+        )
+    # three more rounds in turns (map first, then sequential first, ...):
+    # the two walls side by side on the same card
+    map_walls, sequential_sums = [map_ms], [sum(ms for _, ms in sequential)]
+    for r in range(3):
+        for mode in ("map", "sequential") if r % 2 == 0 else ("sequential", "map"):
+            if mode == "map":
+                map_walls.append(timed(torch, lambda: pipe.map(clips))[1])
+            else:
+                sequential_sums.append(sum(timed(torch, lambda c=c: pipe(c))[1] for c in clips))
+    for name in ("pack_frames", "log_mel", "asp_pool", "linkage"):
+        check(launches[name] > 0, f"map: the {name} kernel never launched")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, map_profiled_ms = timed(torch, lambda: pipe.map(clips))
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = union_length((e.time_range.start, e.time_range.end) for e in device) / 1e3
+    emit(
+        {
+            "entry_points": "map of four clips (59, 30, 12.3 with an orphan chunk, 59 s) "
+            "against sequential calls",
+            "audio_s": [len(c) / seg.sample_rate for c in clips],
+            "sequential_wall_ms": [ms for _, ms in sequential],
+            "sequential_sum_ms": sequential_sums,
+            "map_wall_ms": map_walls,
+            "map_over_sequential_median": statistics.median(map_walls)
+            / statistics.median(sequential_sums),
+            "turns_equal": True,
+            "turns": [len(a.turns()) for a in mapped],
+            "peak_device_gib": {"sequential": sequential_peak, "map": map_peak},
+            "profiled_map_wall_ms": map_profiled_ms,
+            "profiled_map_device_busy_ms": busy_ms,
+            "profiled_map_device_idle_share": 1.0 - busy_ms / map_profiled_ms,
+            "launches": launches,
+        }
+    )
+
+    # --- run_chunks and stage2_internals on the 59 s clip --------------------
+    n = chunk_count(len(clip), seg.window_size, seg.step_size)
+    orphan = len(clip) - (n - 1) * seg.step_size
+    orphan_frames = None
+    if orphan < seg.window_size:
+        orphan_frames = max(pyannet_num_frames(orphan, pipe.pyannet_cfg), 0)
+    S = seg.num_speakers
+    (segs, binarized, emb_rc), launches = counted(
+        torch, counters, lambda: pipe.run_chunks(clip, n, orphan_frames, orphan)
+    )
+    add(launches)
+    pending = pipe._dispatch(clip)
+    emb_call = finalize_embeddings(*to_host(pending["emb"], pending["too_short"]), n, S)
+    check(
+        np.array_equal(np.isnan(emb_rc), np.isnan(emb_call)),
+        "run_chunks: too-short rows differ from the request's",
+    )
+    emb_err = float(np.nanmax(np.abs(emb_rc - emb_call)))
+    check(emb_err <= ENVELOPE, f"run_chunks: embeddings {emb_err} from the request's (> {ENVELOPE})")
+    (signals, wav_lens), launches = counted(
+        torch, counters, lambda: pipe.stage2_internals(clip, n, orphan_frames, orphan)
+    )
+    add(launches)
+    # the plain pack of the same rows: the masks the request chose from its
+    # binarized scores, over the rows' windows
+    binarized_t = torch.from_numpy(binarized)
+    chosen = mk.choose_masks(
+        binarized_t, mk.clean_segmentations(binarized_t), pipe._min_num_frames
+    ).numpy()
+    keep = chosen.reshape(n * S, -1) > pipe.config.embedding.mask_threshold
+    wav_padded = np.zeros((n - 1) * seg.step_size + seg.window_size, np.float32)
+    wav_padded[: len(clip)] = clip
+    windows = np.repeat(
+        np.stack([wav_padded[i * seg.step_size : i * seg.step_size + seg.window_size] for i in range(n)]),
+        S,
+        axis=0,
+    )
+    packed, lens = pack_cuda.pack_frames_plain(
+        torch.from_numpy(windows).cuda(), torch.from_numpy(keep).cuda()
+    )
+    packed, lens = packed.cpu().numpy(), lens.cpu().numpy()
+    too_short = lens < pipe.config.embedding.min_num_samples
+    want_lens = np.where(too_short, 1.0, lens / seg.window_size).astype(np.float32)
+    check(np.array_equal(signals, packed), "stage2_internals: signals differ from the plain pack")
+    check(
+        np.allclose(wav_lens, want_lens, rtol=1e-6, atol=0),
+        "stage2_internals: wav_lens differ from the plain pack's lengths",
+    )
+    emit(
+        {
+            "entry_points": "run_chunks and stage2_internals, 59 s clip",
+            "chunks": n,
+            "embedding_rows": int((~np.isnan(emb_rc[..., 0])).sum()),
+            "emb_max_abs_err_vs_request": emb_err,
+            "envelope": ENVELOPE,
+            "signals_equal_plain_pack": True,
+            "kept_share": float(lens.sum()) / lens.size / seg.window_size,
+        }
+    )
+
+    # --- the sub-pipelines ---------------------------------------------------
+    sp = SegmentationPipeline(seed=0)
+    (vad, vad_ms), launches = counted(torch, counters, lambda: timed(torch, lambda: sp(clip)))
+    speakers = sp(clip, merge_speakers=False)
+    ep = EmbeddingPipeline(seed=0)
+    masks = chosen.reshape(n * S, -1)[: pipe.emb_batch].astype(np.float32)
+    (emb_masked, masked_ms), launches_masked = counted(
+        torch, counters, lambda: timed(torch, lambda: ep(windows[: pipe.emb_batch], masks))
+    )
+    (emb_plain, plain_ms), launches_plain = counted(
+        torch, counters, lambda: timed(torch, lambda: ep(windows[: pipe.emb_batch]))
+    )
+    for ls in (launches, launches_masked, launches_plain):
+        add(ls)
+    rows = ~np.isnan(emb_masked[:, 0])
+    check(
+        emb_masked.shape == emb_plain.shape == (pipe.emb_batch, pipe.ecapa_cfg.emb_dim)
+        and bool(np.isfinite(emb_plain).all())
+        and bool(np.isfinite(emb_masked[rows]).all())
+        and bool(rows.any()),
+        "EmbeddingPipeline: embeddings misshapen or not finite",
+    )
+    check(
+        launches_masked["pack_frames"] == 1 and launches_plain["pack_frames"] == 0
+        and launches_masked["asp_pool_float32"] == launches_plain["asp_pool_float32"] == 1,
+        f"EmbeddingPipeline: launches {launches_masked} (masked), {launches_plain} (plain)",
+    )
+    check(len(vad.turns()) >= 1, "SegmentationPipeline: no speech turn")
+    emit(
+        {
+            "entry_points": "SegmentationPipeline (59 s clip) and EmbeddingPipeline "
+            f"({pipe.emb_batch} windows, float32 trunk)",
+            "segmentation_wall_ms": vad_ms,
+            "vad_turns": len(vad.turns()),
+            "speaker_turns": len(speakers.turns()),
+            "embedding_masked_wall_ms": masked_ms,
+            "embedding_unmasked_wall_ms": plain_ms,
+            "embedding_rows_masked": int(rows.sum()),
+            "launches": {"masked": launches_masked, "unmasked": launches_plain},
+        }
+    )
+
+    # --- the CLI in a subprocess, with the pipeline's weights ----------------
+    tmp = tempfile.mkdtemp()
+    try:
+        wav_path = os.path.join(tmp, "clip.wav")
+        write_wav(wav_path, clip * 32768.0, seg.sample_rate)
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, params_to_jax(pipe.segmentation_model, pipe.embedding_model))
+        want = turn_lines(pipe(wav_path))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "pyannote_audio_speaker_diarization_cpp_tpu_torch.cli",
+             wav_path, "--checkpoint", ckpt],
+            cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True,
+            text=True,
+            timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(out.returncode == 0, f"cli: exit {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    check(bool(lines) and all(TURN_LINE.match(ln) for ln in lines), f"cli: output {lines[:5]}")
+    check(lines == want, f"cli: turns {lines[:5]} differ from in process {want[:5]}")
+    emit(
+        {
+            "entry_points": "python -m ...cli clip.wav --checkpoint <npz dir>, subprocess",
+            "wall_s": cli_s,
+            "turn_lines": len(lines),
+            "turns_equal_in_process": True,
+            "stderr": [ln for ln in out.stderr.splitlines() if "time:" in ln],
+        }
+    )
+
+    # --- the differential dumps on the card against the CPU ------------------
+    small_clip = synth_clip(12.3, seed=977, quantize=True)
+    dumps = {}
+    for device in ("cuda", "cpu"):
+        session = debug_dump.DumpSession(write_text=False)
+        small = small5s_pipeline(device, float32=True)
+        if device == "cuda":
+            annotation, launches = counted(
+                torch, counters, lambda: instrumented.run_with_dumps(small, small_clip, session)
+            )
+            add(launches)
+        else:
+            annotation = instrumented.run_with_dumps(small, small_clip, session)
+        dumps[device] = (session.tensors, turns_of(annotation))
+    results = debug_dump.compare_tensors(dumps["cuda"][0], dumps["cpu"][0])
+    bad = [f"{r.name}: {r.status} {r.detail}" for r in results if r.status != "match"]
+    check(len(results) == 39, f"dumps: {len(results)} names, the checklist has 39")
+    check(not bad, "dumps: card vs cpu: " + "; ".join(bad))
+    check(same_turns(dumps["cuda"][1], dumps["cpu"][1]), "dumps: turns differ between cuda and cpu")
+    emit(
+        {
+            "entry_points": "run_with_dumps small5s (float32), cuda against cpu",
+            "names": len(results),
+            "matched": len(results) - len(bad),
+            "tolerance": "exact for discrete names, rtol 1e-3 / atol 1e-4 for floats",
+        }
+    )
+    emit({"entry_points": "launches over the phase's paths", "launches": totals})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1286,6 +1657,9 @@ def main() -> int:
     totals, expected = main_path_phase(torch, counters)
     # this slice's path: the float32 kernel, counted from 0 over its requests
     totals["asp_pool_float32"] = float32_requests_phase(torch, counters)["asp_pool_float32"]
+    # this slice's paths: every kernel's launches there added
+    for name, n in entry_points_phase(torch, counters).items():
+        totals[name] += n
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
     tpu = "pyannote_audio_speaker_diarization_cpp_tpu"
     rows = [

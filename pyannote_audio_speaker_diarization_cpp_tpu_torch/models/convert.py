@@ -119,3 +119,23 @@ def params_from_jax(
         pyannet_state_from_tree(params["segmentation"]),
         ecapa_state_from_tree(params["embedding"]),
     )
+
+
+def params_to_jax(seg_model: torch.nn.Module, emb_model: torch.nn.Module) -> Dict:
+    """The inverse of ``params_from_jax``: the models' weights as
+    ``{"segmentation": tree, "embedding": tree}`` of float32 numpy arrays in
+    the JAX package's layout, for ``save_checkpoint``."""
+    seg = {}
+    for key, value in seg_model.state_dict().items():
+        parts = key.split(".")
+        if parts[0] == "lstm":
+            name = parts[2]
+            direction = "bwd" if name.endswith("_reverse") else "fwd"
+            key = f"lstm.{parts[1]}.{direction}.{name.split('_l0')[0]}"
+        seg[key] = value.detach().float().cpu().numpy()
+    emb = {
+        key: value.detach().float().cpu().numpy()
+        for key, value in emb_model.state_dict().items()
+        if not key.endswith("num_batches_tracked")
+    }
+    return {"segmentation": unflatten_pytree(seg), "embedding": unflatten_pytree(emb)}

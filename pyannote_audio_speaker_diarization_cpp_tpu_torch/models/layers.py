@@ -4,8 +4,9 @@ Conventions match the JAX package's parameter pytrees (which already use
 torch's): conv weights are (out, in, k), linear weights (out, in), LSTM gates
 ordered i,f,g,o. What torch does not ship is here: "same" convolutions with
 reflect padding (speechbrain's Conv1d default), instance norm over a valid
-prefix of each row, speechbrain's relative-length mask, and a BiLSTM stack
-whose reverse direction starts at each row's true end.
+prefix of each row, speechbrain's relative-length mask, a BiLSTM stack
+whose reverse direction starts at each row's true end, and the copy of a
+host tensor to the card that does not wait for it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +125,36 @@ def length_mask(
     return (idx < bounds[:, None]).to(dtype)
 
 
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``. To a CUDA device it is copied from pinned
+    memory behind the work already queued on the current stream, so the host
+    does not wait for the card (a copy from pageable memory drains the
+    stream first)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def packed_layout(valid: torch.Tensor, T: int):
+    """Host plan of a packed sequence over (B, T) rows with ``valid`` (B,)
+    real steps each (at least one step is packed per row). Returns
+    (batch_sizes (steps,) int64; gather (N,) int64: the flat index b * T + t
+    of each packed step, time-major, rows by descending length; scatter (N,)
+    int64: the same index where t < valid, else B * T, a spare row)."""
+    valid = valid.to("cpu", torch.int64)
+    B = valid.shape[0]
+    lengths = valid.clamp(1, T)
+    sorted_len, order = torch.sort(lengths, descending=True, stable=True)
+    t = torch.arange(int(sorted_len[0]))
+    live = sorted_len[None, :] > t[:, None]  # (steps, B)
+    rows = order[None, :].expand_as(live)[live]
+    times = t[:, None].expand_as(live)[live]
+    gather = rows * T + times
+    scatter = torch.where(times < valid[rows], gather, B * T)
+    return live.sum(dim=1), gather, scatter
+
+
 def bilstm_stack(
     x: torch.Tensor,
     layers: Sequence[nn.LSTM],
@@ -134,25 +165,25 @@ def bilstm_stack(
     ``valid``: optional (B,) host (CPU) tensor of real timesteps per row.
     When some row is short, each layer runs over a packed sequence, so the
     reverse direction starts at the row's true end, and outputs past it are
-    zeroed before the next layer — what true-length inference feeds it.
-    Rows with no valid frame are packed with length 1 and zeroed.
+    zero before the next layer: what true-length inference feeds it. Rows
+    with no valid frame are packed with length 1 and come out zero. The
+    packing plan is built on the host from ``valid`` and reaches the card
+    without a wait (``pack_padded_sequence`` would copy its sort indices
+    from pageable memory, and unpacking would fetch them back).
     """
-    T = x.shape[1]
+    B, T = x.shape[:2]
     if valid is None or bool((valid >= T).all()):
         out = x
         for lstm in layers:
             out, _ = lstm(out)
         return out
-    lengths = valid.to("cpu", torch.int64).clamp(1, T)
-    frame_mask = (torch.arange(T)[None, :] < valid.cpu()[:, None]).to(
-        x.device, x.dtype
-    )[..., None]
+    batch_sizes, gather, scatter = packed_layout(valid, T)
+    gather = host_to_device(gather, x.device)
+    scatter = host_to_device(scatter, x.device)
     out = x
     for lstm in layers:
-        packed = pack_padded_sequence(
-            out, lengths, batch_first=True, enforce_sorted=False
-        )
-        out, _ = lstm(packed)
-        out, _ = pad_packed_sequence(out, batch_first=True, total_length=T)
-        out = out * frame_mask
+        data = out.reshape(B * T, -1).index_select(0, gather)
+        packed, _ = lstm(PackedSequence(data, batch_sizes))
+        rows = out.new_zeros((B * T + 1, packed.data.shape[-1]))
+        out = rows.index_copy_(0, scatter, packed.data)[: B * T].reshape(B, T, -1)
     return out

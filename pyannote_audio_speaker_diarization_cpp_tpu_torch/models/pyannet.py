@@ -231,7 +231,11 @@ class PyanNet(nn.Module):
         a zero-padded short chunk then scores like true-length inference
         (segment/segment.py:103-108) on its valid frames.
         """
-        vs_dev = None if valid_samples is None else valid_samples.to(waveforms.device)
+        vs_dev = (
+            None
+            if valid_samples is None
+            else L.host_to_device(valid_samples.cpu(), waveforms.device)
+        )
         feat = self.sincnet(waveforms, vs_dev)
         valid_frames = None
         if valid_samples is not None:

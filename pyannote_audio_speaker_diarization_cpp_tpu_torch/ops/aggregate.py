@@ -98,3 +98,40 @@ def aggregate(
     if not skip_average:
         agg = agg / torch.clamp(count, min=epsilon)
     return torch.where(seen == 0.0, torch.full_like(agg, missing), agg)
+
+
+def aggregate_numpy(
+    scores: np.ndarray,
+    start_frames: np.ndarray,
+    num_frames: int,
+    missing: float = np.nan,
+    skip_average: bool = False,
+    epsilon: float = float(np.finfo(np.float64).eps),
+) -> np.ndarray:
+    """Numpy mirror of ``aggregate`` for host arrays, in the scores' own
+    dtype and sequential order (the JAX package's ``aggregate_numpy``; the
+    differential dumps recompute the speaker count with it)."""
+    scores = np.asarray(scores)
+    num_chunks, chunk_frames, num_classes = scores.shape
+    masks = (~np.isnan(scores)).astype(scores.dtype)
+    clean = np.nan_to_num(scores)
+    idx = (np.asarray(start_frames)[:, None] + np.arange(chunk_frames)[None, :]).reshape(-1)
+    # contributions outside [0, num_frames) are dropped (np.add.at would
+    # raise past the end and wrap negatives)
+    oob = (idx < 0) | (idx >= num_frames)
+    if oob.any():
+        masks = masks.reshape(-1, num_classes).copy()
+        masks[oob] = 0
+        masks = masks.reshape(num_chunks, chunk_frames, num_classes)
+        idx = np.where(oob, 0, idx)
+
+    agg = np.zeros((num_frames, num_classes), scores.dtype)
+    count = np.zeros((num_frames, num_classes), scores.dtype)
+    seen = np.zeros((num_frames, num_classes), scores.dtype)
+    np.add.at(agg, idx, (clean * masks).reshape(-1, num_classes))
+    np.add.at(count, idx, masks.reshape(-1, num_classes))
+    np.maximum.at(seen, idx, masks.reshape(-1, num_classes))
+
+    if not skip_average:
+        agg = agg / np.maximum(count, epsilon)
+    return np.where(seen == 0.0, scores.dtype.type(missing), agg)

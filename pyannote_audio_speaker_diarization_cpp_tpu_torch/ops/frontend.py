@@ -85,6 +85,15 @@ def constants(cfg: FrontendConfig, device: torch.device):
     return torch.from_numpy(basis).to(device), torch.from_numpy(mel).to(device)
 
 
+def prepare(cfg: FrontendConfig, device: torch.device) -> None:
+    """Build the constants on ``device`` and, on a CUDA device, the log-mel
+    kernel's tables for them: one-time set-up, which waits for the card
+    (``compute_features`` then finds them cached)."""
+    basis, mel = constants(cfg, device)
+    if basis.device.type == "cuda":
+        frontend_cuda.prepare(basis, mel)
+
+
 def _db_terms(cfg: FrontendConfig) -> tuple[float, float]:
     """(multiplier, db offset) of the dB conversion."""
     mult = 10.0 if cfg.power_spectrogram == 2 else 20.0

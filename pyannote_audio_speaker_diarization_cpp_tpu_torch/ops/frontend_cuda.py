@@ -161,6 +161,14 @@ def _cached(cache: WeakIdKeyDictionary, t: torch.Tensor, build):
     return hit[1]
 
 
+def prepare(basis: torch.Tensor, mel: torch.Tensor) -> None:
+    """Build and cache the kernel's basis layout and band table for these
+    tensors now (``band_table`` reads the filterbank back to the host, a
+    wait for the card), so that no launch builds them."""
+    _cached(_TILES, basis, basis_tiles)
+    _cached(_BANDS, mel, band_table)
+
+
 def log_mel_spectrogram(
     x: torch.Tensor,
     basis: torch.Tensor,

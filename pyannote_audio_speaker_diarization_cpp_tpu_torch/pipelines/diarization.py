@@ -23,8 +23,20 @@ pipelines/diarization.py:
     and overlap-add run on the device before the decode.
 
 The device work of a request is launched asynchronously on the current
-stream. On the device route the host waits once, for the activations; on
-the host route once for the clustering inputs and once for the activations.
+stream, and the host never waits for the card while it launches it
+(``_dispatch``): every host array reaches the card from pinned memory
+behind the queued work, and the one-time set-up (the kernels' build, the
+front-end's tables) happens in ``__init__``. On the device route the host
+waits once, for the activations; on the host route once for the
+clustering inputs and once for the activations. ``map`` launches every
+request before it collects the first, so the card runs them back to back
+while the host decodes.
+
+Besides ``__call__`` and ``map``: ``warmup``; ``run_chunks``,
+``run_chunks_device`` and ``stage2_internals`` (stages 1 and 2 on a chunk
+range, the building blocks of long-form and streaming and of the
+differential dumps, utils/instrumented.py); and ``finalize``, stage 3 on
+host arrays. ``dump=`` records the reference's named intermediates.
 """
 
 from __future__ import annotations
@@ -46,8 +58,10 @@ from ..core.sliding_window import SlidingWindow
 from ..io import resample as rs
 from ..io import wav as wavio
 from ..models import convert
+from ..models import layers as L
 from ..models.ecapa import EcapaConfig, EcapaTDNN
 from ..models.pyannet import PyanNet, PyanNetConfig, pyannet_num_frames, pyannet_valid_chain
+from ..ops import _cuda_lib
 from ..ops import binarize as bz
 from ..ops import frontend as fe
 from ..ops import masks as mk
@@ -64,16 +78,20 @@ def _ceil_to(x: int, m: int) -> int:
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; without one, only an explicit CPU
-    request runs."""
+    request runs. A CUDA device comes back with its index, as the tensors on
+    it report their device."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available: pass device='cpu' to run on the CPU"
             )
-        return torch.device("cuda")
+        device = "cuda"
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -94,6 +112,17 @@ def precision_scope(precision: str):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def prepare_device(device: torch.device, frontend_cfg) -> None:
+    """One-time set-up that waits (for nvcc, for the card), done when a
+    pipeline is built so that no dispatch waits for it: on a CUDA device the
+    kernels' libraries are built and loaded and the log-mel kernel's tables
+    made."""
+    if device.type == "cuda":
+        for name in _cuda_lib.KERNELS:
+            _cuda_lib.library(name)
+    fe.prepare(frontend_cfg, device)
 
 
 def post_cluster(
@@ -151,9 +180,9 @@ def stage3(
     return activations.to(torch.float16), res.hard, res.num_large
 
 
-def fetch(*tensors: torch.Tensor):
+def to_host(*tensors: torch.Tensor):
     """Device tensors -> numpy arrays, with one wait for all of them."""
-    if tensors and tensors[0].device.type == "cuda":
+    if any(t.device.type == "cuda" for t in tensors):
         tensors = [t.to("cpu", non_blocking=True) for t in tensors]
         torch.cuda.current_stream().synchronize()
     return [t.numpy() for t in tensors]
@@ -206,7 +235,9 @@ class StageTimings:
     Device milliseconds from CUDA events (0 on the CPU, and 0 for a stage
     the request did not run): ``stage1_ms``, ``stage2_ms``, ``stage3_ms``
     (device stage 3) and ``post_ms`` (the host route's post-clustering
-    aggregation).
+    aggregation). The JAX package's ``embedding`` host span has no
+    counterpart: the dispatch never waits for stage 2, so ``stage2_ms`` is
+    its time.
     """
 
     segmentation: float = 0.0
@@ -223,9 +254,10 @@ class SpeakerDiarizationPipeline:
 
     ``params``: ``{"segmentation": tree, "embedding": tree}`` in the JAX
     package's pytree layout (models/convert.py load_checkpoint), or None for
-    seeded random weights. ``device``: None runs on the CUDA card and raises
-    without one; pass ``"cpu"`` to run on the CPU (every kernel then runs
-    its plain PyTorch version). ``precision``: "default" or "highest" (TF32
+    seeded random weights (a part missing from it keeps them too).
+    ``device``: None runs on the CUDA card and raises without one; pass
+    ``"cpu"`` to run on the CPU (every kernel then runs its plain PyTorch
+    version). ``precision``: "default" or "highest" (TF32
     off for float32 matmuls, convolutions and the LSTM).
 
     ``device_clustering``: "auto" (the default) runs stage 3 on the device
@@ -274,10 +306,11 @@ class SpeakerDiarizationPipeline:
         generator = torch.Generator().manual_seed(seed)
         seg_model = PyanNet(self.pyannet_cfg, generator=generator)
         emb_model = EcapaTDNN(self.ecapa_cfg, generator=generator)
-        if params is not None:
-            seg_state, emb_state = convert.params_from_jax(params)
-            seg_model.load_state_dict(seg_state)
-            emb_model.load_state_dict(emb_state)
+        # a part missing from ``params`` keeps its seeded random weights
+        if params is not None and "segmentation" in params:
+            seg_model.load_state_dict(convert.pyannet_state_from_tree(params["segmentation"]))
+        if params is not None and "embedding" in params:
+            emb_model.load_state_dict(convert.ecapa_state_from_tree(params["embedding"]))
         # compute_dtype="bfloat16": the ECAPA trunk runs with bf16 weights
         # and activations (cast once, here); the front-end and the returned
         # embeddings stay float32
@@ -320,6 +353,7 @@ class SpeakerDiarizationPipeline:
                 seg_cfg.num_frames * config.embedding.min_num_samples / seg_cfg.window_size
             )
         )
+        prepare_device(self.device, config.frontend)
 
     # ------------------------------------------------------------------
     # plans
@@ -413,14 +447,11 @@ class SpeakerDiarizationPipeline:
             key, plan_aggregation(num_chunks, trimmed_frames, frame_grid)
         )
 
-    def _to_device(self, array: np.ndarray, wait: bool = True) -> torch.Tensor:
-        """A host array on the pipeline's device. A plain copy to the card
-        waits for the stream to drain first; ``wait=False`` copies from
-        pinned memory instead, behind the work already queued."""
-        host = torch.from_numpy(np.ascontiguousarray(array))
-        if wait or self.device.type != "cuda":
-            return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
+    def _to_device(self, array) -> torch.Tensor:
+        """A host array (numpy or a CPU tensor) on the pipeline's device,
+        copied to the card from pinned memory behind the work already
+        queued: the host does not wait."""
+        return L.host_to_device(torch.as_tensor(np.ascontiguousarray(array)), self.device)
 
     # ------------------------------------------------------------------
     # device stages
@@ -468,7 +499,7 @@ class SpeakerDiarizationPipeline:
         model = self.segmentation_model
         num_chunks = chunks.shape[0]
         vs_host = torch.from_numpy(valid_samples.astype(np.int64))
-        vs_dev = vs_host.to(self.device) if self.exact_orphan else None
+        vs_dev = self._to_device(vs_host) if self.exact_orphan else None
         feats = torch.cat(
             [
                 model.sincnet(
@@ -489,15 +520,18 @@ class SpeakerDiarizationPipeline:
         )
         return (segs,) + self._post_process(segs, vf_dev)
 
-    def _stage2(self, chunks: torch.Tensor, chosen: torch.Tensor):
+    def _stage2(self, chunks: torch.Tensor, chosen: torch.Tensor, with_internals: bool = False):
         """chunks (num_padded, window), chosen (num_padded, S, F) -> batches
         of (gather windows + left-pack + log-mel features + ECAPA). Returns
-        (embeddings (rows, D) in transfer_dtype, too_short (rows,) bool)."""
+        (embeddings (rows, D) in transfer_dtype, too_short (rows,) bool);
+        ``with_internals`` adds the packed signals (rows, window) and the
+        normalized wav_lens (rows,) as the pack kernel and its length step
+        computed them (the JAX package's ``stage2_debug``)."""
         cfg = self.config
         S = cfg.segmentation.num_speakers
         rows = chosen.reshape(chosen.shape[0] * S, -1)
         chunk_of_row = torch.arange(rows.shape[0], device=self.device) // S
-        embs, shorts = [], []
+        embs, shorts, packed, lens = [], [], [], []
         for i in range(0, rows.shape[0], self.emb_batch):
             windows = chunks[chunk_of_row[i : i + self.emb_batch]]
             signals, wav_lens, too_short = mk.pack_and_lengths(
@@ -510,7 +544,12 @@ class SpeakerDiarizationPipeline:
             emb = self.embedding_model(feats.to(self.emb_dtype), wav_lens)
             embs.append(emb.to(torch.float32))
             shorts.append(too_short)
+            if with_internals:
+                packed.append(signals)
+                lens.append(wav_lens)
         emb = torch.cat(embs).to(getattr(torch, cfg.transfer_dtype))
+        if with_internals:
+            return emb, torch.cat(shorts), torch.cat(packed), torch.cat(lens)
         return emb, torch.cat(shorts)
 
     # ------------------------------------------------------------------
@@ -524,7 +563,12 @@ class SpeakerDiarizationPipeline:
         num_speakers: Optional[int] = None,
         min_speakers: Optional[int] = None,
         max_speakers: Optional[int] = None,
+        dump=None,
     ) -> Annotation:
+        """``dump``: an optional utils.debug_dump.DumpSession that records the
+        pipeline's intermediates under the reference's names; the request
+        then fetches every stage output and runs stage 3 on the host
+        (``finalize``)."""
         with precision_scope(self.precision):
             pending = self._dispatch(
                 audio,
@@ -538,7 +582,58 @@ class SpeakerDiarizationPipeline:
                 num_speakers=num_speakers,
                 min_speakers=min_speakers,
                 max_speakers=max_speakers,
+                dump=dump,
             )
+
+    def map(
+        self,
+        audios,
+        sample_rate: Optional[int] = None,
+        num_speakers: Optional[int] = None,
+        min_speakers: Optional[int] = None,
+        max_speakers: Optional[int] = None,
+    ):
+        """Diarize several recordings: launch every request's device work,
+        then collect them in order, so request i's fetch and decode overlap
+        the card's work on the requests after it. Returns one Annotation per
+        input, equal to ``self(audio)`` of each."""
+        with precision_scope(self.precision):
+            bounds = dict(
+                num_speakers=num_speakers, min_speakers=min_speakers, max_speakers=max_speakers
+            )
+            pendings = [self._dispatch(a, sample_rate, **bounds) for a in audios]
+            return [self._collect(p, **bounds) for p in pendings]
+
+    def warmup(self, max_audio_seconds: float = 60.0, num_clusters: int = 4):
+        """Run one request for every chunk bucket up to ``max_audio_seconds``
+        (silence whose last chunk is an orphan, so the packed LSTM runs as
+        a request with padding chunks runs it), plus the host route's post
+        step at the K lattice of ``num_clusters``, then wait for the card. It
+        pays what a first request would: cuDNN's plan choice for each shape
+        and the allocator's first growth (the kernels are built in
+        ``__init__``). Returns the padded chunk counts warmed, as the JAX
+        package's ``warmup`` does for the same configuration."""
+        seg_cfg = self.config.segmentation
+        step, window = seg_cfg.step_size, seg_cfg.window_size
+        max_samples = int(max_audio_seconds * seg_cfg.sample_rate)
+        max_chunks = max(win.chunk_count(max_samples, window, step), 1)
+        buckets = sorted({self.chunk_lattice(n) for n in range(1, max_chunks + 1)})
+        k_pad = _ceil_to(num_clusters, 4)
+        with precision_scope(self.precision), torch.inference_mode():
+            for npad in buckets:
+                audio = np.zeros((npad - 1) * step + window - step // 2, np.float32)
+                pending = self._dispatch(audio)
+                membership = np.zeros((npad, seg_cfg.num_speakers, k_pad), dtype=bool)
+                plan = self._diarization_plan(npad)
+                post_cluster(
+                    pending["segmentations"],
+                    self._to_device(membership),
+                    self._to_device(plan.start_frames),
+                    plan.num_frames,
+                )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return buckets
 
     def _events(self, n: int):
         if self.device.type != "cuda":
@@ -625,7 +720,7 @@ class SpeakerDiarizationPipeline:
                 emb,
                 too_short,
                 inactive,
-                self._to_device(dia_plan.start_frames, wait=False),
+                self._to_device(dia_plan.start_frames),
                 dia_plan.num_frames,
                 self._device_clu_key(),
             )
@@ -661,11 +756,13 @@ class SpeakerDiarizationPipeline:
         num_speakers=None,
         min_speakers=None,
         max_speakers=None,
+        dump=None,
         timings: Optional[StageTimings] = None,
     ) -> Annotation:
         """Decode one pending request: from the device stage 3's activations
         (one fetch), or else fetch the clustering inputs, cluster on the
-        host, run the device post-step and decode."""
+        host, run the device post-step and decode. With ``dump`` every stage
+        output is fetched and the host twin ``finalize`` runs stage 3."""
         timings = timings if timings is not None else self.timings
         cfg = self.config
         seg_cfg = cfg.segmentation
@@ -675,9 +772,9 @@ class SpeakerDiarizationPipeline:
 
         dc = pending.get("device_clu")
         bounds_given = any(b is not None for b in (num_speakers, min_speakers, max_speakers))
-        if dc is not None and not bounds_given:
+        if dc is not None and dump is None and not bounds_given:
             t0 = time.perf_counter()
-            act_h, num_large_h, count_h = fetch(
+            act_h, num_large_h, count_h = to_host(
                 dc["activations"], dc["num_large"], pending["count_raw"]
             )
             timings.fetch = time.perf_counter() - t0
@@ -693,14 +790,43 @@ class SpeakerDiarizationPipeline:
 
         t0 = time.perf_counter()
         rows = num_chunks * seg_cfg.num_speakers
-        emb_h = pending["emb"].cpu().numpy()
-        too_short_h = pending["too_short"].cpu().numpy()
-        inactive_h = pending["inactive"].cpu().numpy()[:num_chunks]
+        to_fetch = [pending["emb"], pending["too_short"], pending["inactive"]]
+        if dump is not None:
+            to_fetch += [
+                pending["count_raw"],
+                pending["segmentations"][:num_chunks],
+                pending["binarized"][:num_chunks],
+            ]
+        fetched = to_host(*to_fetch)
+        inactive_h = fetched[2][:num_chunks]
         embeddings = finalize_embeddings(
-            emb_h[:rows], too_short_h[:rows], num_chunks, seg_cfg.num_speakers
+            fetched[0][:rows], fetched[1][:rows], num_chunks, seg_cfg.num_speakers
         )
         timings.fetch = time.perf_counter() - t0
         self._read_events(pending, timings)
+
+        if dump is not None:
+            count = np.rint(fetched[3][: pending["real_plan"].num_frames]).astype(np.int64)
+            dump.dump("embeddings", embeddings)
+            dump.dump("segmentations", fetched[4])
+            dump.dump("binarized_segmentations", fetched[5])
+            dump.dump("count", count)
+            t0 = time.perf_counter()
+            annotation = self.finalize(
+                fetched[4],
+                fetched[5],
+                embeddings,
+                count,
+                pending["count_frames"],
+                pending["chunk_frames"],
+                num_speakers=num_speakers,
+                min_speakers=min_speakers,
+                max_speakers=max_speakers,
+                dump=dump,
+                inactive=inactive_h,
+            )
+            timings.clustering = time.perf_counter() - t0
+            return annotation
 
         t0 = time.perf_counter()
         hard, _soft = self.clusterer(
@@ -728,8 +854,7 @@ class SpeakerDiarizationPipeline:
         )
         if post_events:
             post_events[1].record()
-        activations = activations_dev.cpu().numpy()
-        count_h = pending["count_raw"].cpu().numpy()
+        activations, count_h = to_host(activations_dev, pending["count_raw"])
         if post_events:
             timings.post_ms = post_events[0].elapsed_time(post_events[1])
         annotation = self._decode(pending, activations, num_clusters, count_h)
@@ -765,6 +890,127 @@ class SpeakerDiarizationPipeline:
             min_duration_off=seg_cfg.min_duration_off,
         )
 
+    # ------------------------------------------------------------------
+    # stages 1 and 2 on a chunk range
+    # ------------------------------------------------------------------
+
+    def _range_inputs(self, waveform_slice, num_chunks, orphan_frames, orphan_samples):
+        """Host inputs of a chunk range: (num_padded, wav_padded,
+        valid_frames, valid_samples); chunk i is samples [i * step, i * step
+        + window) of ``waveform_slice``."""
+        seg_cfg = self.config.segmentation
+        num_padded = self.chunk_lattice(num_chunks)
+        needed = (num_padded - 1) * seg_cfg.step_size + seg_cfg.window_size
+        wav_padded = np.zeros(needed, dtype=np.float32)
+        wav_padded[: waveform_slice.shape[0]] = waveform_slice
+        valid_frames = np.zeros(num_padded, dtype=np.int32)
+        valid_frames[:num_chunks] = seg_cfg.num_frames
+        valid_samples = np.zeros(num_padded, dtype=np.int32)
+        valid_samples[:num_chunks] = seg_cfg.window_size
+        if orphan_frames is not None:
+            valid_frames[num_chunks - 1] = orphan_frames
+        if orphan_samples is not None and orphan_samples < seg_cfg.window_size:
+            valid_samples[num_chunks - 1] = orphan_samples
+        return num_padded, wav_padded, valid_frames, valid_samples
+
+    @torch.inference_mode()
+    def _run_range(
+        self, waveform_slice, num_chunks, orphan_frames, orphan_samples, with_internals=False
+    ):
+        """Stages 1 and 2 of a chunk range, launched without waiting:
+        (segs, binarized, inactive, valid_frames (host), stage-2 outputs)."""
+        seg_cfg = self.config.segmentation
+        num_padded, wav_padded, valid_frames, valid_samples = self._range_inputs(
+            waveform_slice, num_chunks, orphan_frames, orphan_samples
+        )
+        with precision_scope(self.precision):
+            chunks = win.device_chunks(
+                self._to_device(wav_padded), num_padded, seg_cfg.window_size, seg_cfg.step_size
+            )
+            segs, binarized, chosen, _, inactive = self._stage1(
+                chunks, valid_frames, valid_samples
+            )
+            return segs, binarized, inactive, valid_frames, self._stage2(
+                chunks, chosen, with_internals
+            )
+
+    def run_chunks(
+        self,
+        waveform_slice: np.ndarray,
+        num_chunks: int,
+        orphan_frames: Optional[int] = None,
+        orphan_samples: Optional[int] = None,
+    ):
+        """Stages 1 and 2 on a contiguous chunk range.
+
+        ``waveform_slice`` holds the samples of chunks [0, num_chunks) of the
+        range; ``orphan_frames`` gives the last chunk's valid model frames
+        when it is the recording's short tail, and ``orphan_samples`` its
+        true sample count. Returns host arrays: segs (n, F, S), binarized
+        (n, F, S) and embeddings (n, S, D) float64 with NaN rows for
+        too-short masks. The building block of long-form and streaming, and
+        of the differential dumps."""
+        seg_cfg = self.config.segmentation
+        S = seg_cfg.num_speakers
+        if num_chunks == 0:
+            F = seg_cfg.num_frames
+            return (
+                np.zeros((0, F, S), np.float32),
+                np.zeros((0, F, S), np.float32),
+                np.zeros((0, S, self.ecapa_cfg.emb_dim), np.float64),
+            )
+        segs, binarized, _, _, (emb, too_short) = self._run_range(
+            waveform_slice, num_chunks, orphan_frames, orphan_samples
+        )
+        rows = num_chunks * S
+        segs_h, bin_h, emb_h, too_short_h = to_host(
+            segs[:num_chunks], binarized[:num_chunks], emb[:rows], too_short[:rows]
+        )
+        return segs_h, bin_h, finalize_embeddings(emb_h, too_short_h, num_chunks, S)
+
+    def run_chunks_device(
+        self,
+        waveform_slice: np.ndarray,
+        num_chunks: int,
+        orphan_frames: Optional[int] = None,
+        orphan_samples: Optional[int] = None,
+        fetch: bool = True,
+    ):
+        """Like ``run_chunks``, but the score tensors stay on the device.
+        Returns (segs (padded, F, S), binarized (padded, F, S) on the device,
+        valid_frames (padded,) host, embeddings (n, S, D) float64 host with
+        NaN rows, inactive (n, S) bool host). ``fetch=False`` waits for
+        nothing and returns (segs, binarized, valid_frames, emb (rows, D),
+        too_short (rows,), inactive (padded, S)), all but valid_frames on
+        the device, so a caller can launch more ranges before it fetches."""
+        segs, binarized, inactive, valid_frames, (emb, too_short) = self._run_range(
+            waveform_slice, num_chunks, orphan_frames, orphan_samples
+        )
+        if not fetch:
+            return segs, binarized, valid_frames, emb, too_short, inactive
+        emb_h, too_short_h, inactive_h = to_host(emb, too_short, inactive)
+        embeddings = finalize_embeddings(
+            emb_h, too_short_h, num_chunks, self.config.segmentation.num_speakers
+        )
+        return segs, binarized, valid_frames, embeddings, inactive_h[:num_chunks]
+
+    def stage2_internals(
+        self,
+        waveform: np.ndarray,
+        num_chunks: int,
+        orphan_frames: Optional[int] = None,
+        orphan_samples: Optional[int] = None,
+    ):
+        """(signals (rows, window), wav_lens (rows,)) of the real rows, as
+        the production stage 2 computed them (pack kernel, length step, same
+        orphan handling as ``run_chunks``), fetched to the host: the
+        provenance of the differential dumps' stage-2 tensors."""
+        _, _, _, _, (_, _, signals, wav_lens) = self._run_range(
+            waveform, num_chunks, orphan_frames, orphan_samples, with_internals=True
+        )
+        rows = num_chunks * self.config.segmentation.num_speakers
+        return tuple(to_host(signals[:rows], wav_lens[:rows]))
+
     def finalize(
         self,
         segmentations: np.ndarray,
@@ -776,28 +1022,41 @@ class SpeakerDiarizationPipeline:
         num_speakers: Optional[int] = None,
         min_speakers: Optional[int] = None,
         max_speakers: Optional[int] = None,
+        dump=None,
         inactive: Optional[np.ndarray] = None,
         clusterer=None,
     ) -> Annotation:
         """Stage 3 on host arrays: cluster embeddings, reconstruct the
-        global timeline, decode turns. ``inactive`` (chunks, speakers) bool
-        marks locally-silent speakers; derived from ``binarized`` when not
-        given. ``clusterer`` overrides self.clusterer for one call."""
+        global timeline, decode turns. ``dump``: an optional DumpSession for
+        the clustering and reconstruction intermediates. ``inactive``
+        (chunks, speakers) bool marks locally-silent speakers; derived from
+        ``binarized`` when not given. ``clusterer`` overrides self.clusterer
+        for one call."""
         cfg = self.config
         seg_cfg = cfg.segmentation
-        hard, _soft = (clusterer or self.clusterer)(
+        clusterer = clusterer or self.clusterer
+        cluster_kwargs = {}
+        if dump is not None and isinstance(clusterer, AgglomerativeClustering):
+            cluster_kwargs["dump"] = dump
+        hard, soft = clusterer(
             embeddings,
             num_clusters=num_speakers or cfg.num_speakers,
             min_clusters=min_speakers or cfg.min_speakers,
             max_clusters=max_speakers or cfg.max_speakers,
+            **cluster_kwargs,
         )
         if inactive is None:
             inactive = binarized.sum(axis=1) == 0
         hard = np.asarray(hard)
         hard[inactive] = -2
+        if dump is not None:
+            dump.dump("hard_clusters", hard)
+            dump.dump("soft_clusters", soft)
         discrete, discrete_frames = rec.reconstruct(
-            segmentations, chunk_frames, hard, count, count_frames
+            segmentations, chunk_frames, hard, count, count_frames, dump=dump
         )
+        if dump is not None:
+            dump.dump("discrete_diarization", discrete)
         return rec.to_annotation(
             discrete,
             discrete_frames,

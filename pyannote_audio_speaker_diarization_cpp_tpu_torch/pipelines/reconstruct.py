@@ -60,7 +60,7 @@ def speaker_count(
     plan = plan_aggregation(
         summed.shape[0], trimmed_frames, frame_grid, num_samples=num_samples
     )
-    count = _aggregate_host(summed, plan, skip_average=False)
+    count = aggregate_host(summed, plan, skip_average=False)
     count = np.rint(count[:, 0]).astype(np.int64)
     return count, plan.frames
 
@@ -71,9 +71,12 @@ def reconstruct(
     hard_clusters: np.ndarray,
     count: np.ndarray,
     count_frames: SlidingWindow,
+    dump=None,
 ) -> Tuple[np.ndarray, SlidingWindow]:
     """Stitch local speaker activations into per-cluster activations and
     binarize by per-frame speaker count (speakerDiarizer.cpp:2789-2848).
+    ``dump``: an optional utils.debug_dump.DumpSession that records the
+    reference's intermediates of this step and the next ones.
 
     Returns (discrete_diarization (frames, num_clusters), frame grid).
     """
@@ -90,7 +93,9 @@ def reconstruct(
         has_k = member_k.any(axis=1)
         masked = np.where(member_k[:, None, :], segmentations, -np.inf)
         clustered[has_k, :, k] = masked.max(axis=2)[has_k]
-    return to_diarization(clustered, chunk_frames, count, count_frames)
+    if dump is not None:
+        dump.dump("clustered_segmentations", clustered)
+    return to_diarization(clustered, chunk_frames, count, count_frames, dump=dump)
 
 
 def crop_segment(
@@ -106,7 +111,7 @@ def crop_segment(
     return data[lo:hi], frames
 
 
-def _aggregate_host(scores: np.ndarray, plan, skip_average: bool) -> np.ndarray:
+def aggregate_host(scores: np.ndarray, plan, skip_average: bool) -> np.ndarray:
     """ops.aggregate on host arrays (missing frames -> 0)."""
     out = aggregate(
         torch.from_numpy(np.ascontiguousarray(scores)),
@@ -123,12 +128,27 @@ def to_diarization(
     chunk_frames: SlidingWindow,
     count: np.ndarray,
     count_frames: SlidingWindow,
+    dump=None,
 ) -> Tuple[np.ndarray, SlidingWindow]:
     """(chunks, frames, K) NaN-masked activations + per-frame count ->
     (frames, K) binary matrix (speakerDiarizer.cpp:2638-2764)."""
     plan = plan_aggregation(clustered.shape[0], chunk_frames, count_frames)
-    activations = _aggregate_host(clustered.astype(np.float32), plan, skip_average=True)
-    return binarize_by_count(activations, plan.frames, count, count_frames)
+    scores32 = clustered.astype(np.float32)
+    activations = aggregate_host(scores32, plan, skip_average=True)
+    if dump is not None:
+        # the aggregate() internals the reference dumps from
+        # PipelineHelper::aggregate (speakerDiarizer.cpp:1161-1313)
+        masks_agg = (~np.isnan(scores32)).astype(np.float32)
+        idx = plan.start_frames[:, None] + np.arange(scores32.shape[1])[None, :]
+        overlap = np.zeros((plan.num_frames, scores32.shape[2]), np.float32)
+        np.add.at(overlap, idx.reshape(-1), masks_agg.reshape(-1, scores32.shape[2]))
+        dump.dump("scores_in_aggregate", np.nan_to_num(scores32))
+        dump.dump("masks_in_aggregate", masks_agg)
+        dump.dump("aggregated_output", activations)
+        dump.dump("aggregated_mask", (overlap > 0).astype(np.float32))
+        dump.dump("overlapping_chunk_count", overlap)
+        dump.dump("to_diarization_activations", activations)
+    return binarize_by_count(activations, plan.frames, count, count_frames, dump=dump)
 
 
 def binarize_by_count(
@@ -136,6 +156,7 @@ def binarize_by_count(
     activations_frames: SlidingWindow,
     count: np.ndarray,
     count_frames: SlidingWindow,
+    dump=None,
 ) -> Tuple[np.ndarray, SlidingWindow]:
     """Aggregated per-cluster activations + per-frame count -> binary
     (frames, K) matrix: crop to the activations∩count extent, keep the
@@ -160,6 +181,10 @@ def binarize_by_count(
     n = min(len(cropped_count), len(cropped_activations))
     binary = np.zeros_like(cropped_activations)
     binary[:n][ranks[:n] < cropped_count[:n]] = 1.0
+    if dump is not None:
+        dump.dump("cropped_activations", cropped_activations)
+        dump.dump("cropped_count", cropped_count)
+        dump.dump("sorted_speakers", order)
     return binary, cropped_frames
 
 
