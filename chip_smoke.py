@@ -72,9 +72,27 @@ Phases, each a JSON line on stdout:
      subprocess, its turns equal to the in-process turns for the same
      weights (saved as an .npz directory under a temporary directory); and
      small5s run_with_dumps on the card against the CPU (all 39 names);
-  9. the kernel summary line (launches: float32 ASP's from phase 7, the
-     others' from phase 6, each plus phase 8's), the nvidia-smi line, and
-     last {"ok": true, "device": {...}}.
+  9. layouts: one full-width pipeline per ECAPA layout ("nch", "nhc",
+     "gemm"): a first request, then two under sync debug mode "error"
+     (launches as in phase 6, device ms by stage), turns equal to the
+     "nch" pipeline's; stage 2 alone and one 32-row trunk batch timed and
+     profiled on a request's own inputs (stage 2's top kernels); the MFA
+     and a tdnn1 1x1 conv alone in each layout's form (ms, TFLOP/s, the
+     kernel it gets); in "nhc" the bf16 ASP kernel against its plain
+     version on a request's inputs, beside the ms of the (B, T, C) ->
+     (B, C, T) copy of x it takes; small5s float32 (TF32 off) in "nhc" and
+     "gemm", card against CPU (embeddings rtol 1e-3 / atol 1e-4, turns);
+ 10. ingest: the seeded full-width models written as a pyannote Lightning
+     .bin, a speechbrain savedir and an .npz tree with a baked filterbank;
+     load_params_auto of each (host s; the arrays equal the source's), one
+     request each on pipelines built from them, turns equal to the
+     source's;
+ 11. sinc_conv: the SincNet conv's polyphase and strided forms on one
+     (32, 80 000) batch, TF32 off and on: device ms, the largest
+     difference between the forms and from the CPU, the bound;
+ 12. the kernel summary line (launches: float32 ASP's from phase 7, the
+     others' from phase 6, each plus phases 8-10's), the nvidia-smi line,
+     and last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
 line. It imports nothing of JAX, and fails without a CUDA device or
@@ -217,20 +235,54 @@ def l2_flush_buffer(torch):
     return torch.zeros(2 * l2 // 4, dtype=torch.float32, device="cuda")
 
 
+def is_marker(event) -> bool:
+    """A device event of ``torch.cuda._sleep``'s kernel (the markers that
+    ``traced`` and ``profile_sections`` launch)."""
+    return "spin_kernel" in event.name
+
+
+def traced(torch, fn, markers: int = 0):
+    """(fn(), the device events torch.profiler traced from fn's start on:
+    kernels, copies and memsets, in the order they ran). ``markers``: the
+    marker kernels (``torch.cuda._sleep``) fn launches itself. On the card
+    a session has dropped every device event of its first tens to hundreds
+    of milliseconds (in one, nothing before 57 ms was traced; in another,
+    nothing before its last 0.1 s section), so fn runs after a lead-in: a
+    host sleep, then a marker kernel. The trace must hold all markers, the
+    lead-in's first, else the session runs again with twice the sleep (0.25
+    s, then up to 4 s). The events are cut at that marker in the device's
+    own order: device and host timestamps were found milliseconds apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead_s = 0.25
+    while True:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(lead_s)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        device = sorted(device_events(prof.events()), key=lambda e: e.time_range.start)
+        found = [i for i, e in enumerate(device) if is_marker(e)]
+        if len(found) == markers + 1:
+            return out, device[found[0] + 1 :]
+        check(lead_s < 4.0, "profile: the trace never held every marker kernel")
+        lead_s *= 2
+
+
+def device_events(events):
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
 def profile_call(torch, fn, reps: int = 10):
     """(device kernels and copies a fn() call runs, their device ms a call),
     from ``reps`` warm calls under torch.profiler: the kernels' own run time,
     without the launch and event latency that a CUDA-event timing includes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, device = traced(torch, lambda: [fn() for _ in range(reps)])
     busy = sum(e.time_range.end - e.time_range.start for e in device) / 1e3
     return len(device) / reps, busy / reps
 
@@ -616,10 +668,13 @@ def strict_dispatch(torch, pipe):
     return pipe
 
 
-def small5s_pipeline(device: str, float32: bool, params=None, device_clustering="auto"):
+def small5s_pipeline(
+    device: str, float32: bool, params=None, device_clustering="auto", ecapa_layout="nch"
+):
     """The small5s test configuration (the real 5 s / 0.5 s recipe, small
     model widths, seed 0): float32 compute and transfer at precision
-    "highest" (TF32 off), or the defaults."""
+    "highest" (TF32 off), or the defaults; the ECAPA trunk in
+    ``ecapa_layout``."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ecapa import EcapaConfig
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import PyanNetConfig
@@ -645,10 +700,13 @@ def small5s_pipeline(device: str, float32: bool, params=None, device_clustering=
         ),
         device=device,
         device_clustering=device_clustering,
+        ecapa_layout=ecapa_layout,
     )
 
 
-def run_small5s(device: str, float32: bool, params=None, device_clustering="auto"):
+def run_small5s(
+    device: str, float32: bool, params=None, device_clustering="auto", ecapa_layout="nch"
+):
     """One request of the small5s test configuration (the real 5 s / 0.5 s
     recipe, small model widths) on the 12.3 s int16 clip: float32 compute
     and transfer at precision "highest" (TF32 off), or the defaults (bf16
@@ -661,7 +719,7 @@ def run_small5s(device: str, float32: bool, params=None, device_clustering="auto
         precision_scope,
     )
 
-    pipe = small5s_pipeline(device, float32, params, device_clustering)
+    pipe = small5s_pipeline(device, float32, params, device_clustering, ecapa_layout)
     clip = synth_clip(12.3, seed=977, quantize=True)
     with precision_scope(pipe.precision):
         pending = pipe._dispatch(clip)
@@ -1040,15 +1098,7 @@ def profile_request(torch, pipe, clip):
     kernel, and the share of the request's wall time in which no device
     activity (kernel, copy, memset) ran. The profiler slows the host, so
     this idle share is an upper bound for the unprofiled requests."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe(clip)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    (_, wall_ms), device = traced(torch, lambda: timed(torch, lambda: pipe(clip)))
     check(bool(device), "profile: no device activity was traced")
     busy_ms = union_length((e.time_range.start, e.time_range.end) for e in device) / 1e3
     by_name = {}
@@ -1131,9 +1181,6 @@ def float32_requests_phase(torch, counters):
     under torch.profiler (the kernel's device time in a request). Kernel times
     on the batch are CUDA-event device times, as in the kernel phase.
     ``counters``: as main_path_phase's. Returns the launch counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import asp_cuda
@@ -1255,12 +1302,7 @@ def float32_requests_phase(torch, counters):
     )
 
     # one more request under torch.profiler: the kernel's device time in it
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe(clip)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    (_, wall_ms), device = traced(torch, lambda: timed(torch, lambda: pipe(clip)))
     runs = [
         (e.time_range.end - e.time_range.start) / 1e3 for e in device if "asp_f32_kernel" in e.name
     ]
@@ -1327,9 +1369,6 @@ def entry_points_phase(torch, counters):
     launches over the phase's paths."""
     import shutil
     import tempfile
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.io.wav import write_wav
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
@@ -1412,9 +1451,7 @@ def entry_points_phase(torch, counters):
                 sequential_sums.append(sum(timed(torch, lambda c=c: pipe(c))[1] for c in clips))
     for name in ("pack_frames", "log_mel", "asp_pool", "linkage"):
         check(launches[name] > 0, f"map: the {name} kernel never launched")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, map_profiled_ms = timed(torch, lambda: pipe.map(clips))
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    (_, map_profiled_ms), device = traced(torch, lambda: timed(torch, lambda: pipe.map(clips)))
     busy_ms = union_length((e.time_range.start, e.time_range.end) for e in device) / 1e3
     emit(
         {
@@ -1604,6 +1641,402 @@ def entry_points_phase(torch, counters):
     return totals
 
 
+def per_request_launches(pipe, clip, counters):
+    """The launches each kernel must make in one request of ``clip``."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+
+    seg = pipe.config.segmentation
+    padded = pipe.chunk_lattice(chunk_count(len(clip), seg.window_size, seg.step_size))
+    batches = padded * seg.num_speakers // pipe.emb_batch
+    return {name: batches if n is None else n for name, (_, _, n) in counters.items()}
+
+
+def profile_sections(torch, sections, top: int = 8):
+    """Each fn of ``sections`` ({name: fn}) once, warm, in one
+    torch.profiler session (``traced``), in order, each after a marker
+    kernel and closed by a wait for the card. Returns {name: (its device
+    kernels by total ms, the first ``top``, each {name, device_ms, calls};
+    their device ms in all; their count)}: a section's kernels are those
+    between its marker and the next, in the device's own order."""
+
+    def run():
+        for fn in sections.values():
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+
+    run()
+    _, device = traced(torch, run, markers=len(sections))
+    parts = []
+    for e in device:
+        if is_marker(e):
+            parts.append({})
+        elif parts:
+            acc = parts[-1].setdefault(e.name, [0.0, 0])
+            acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+            acc[1] += 1
+    check(
+        len(parts) == len(sections) and all(parts),
+        f"profile: {len(parts)} traced sections of {len(sections)}, or one without a kernel",
+    )
+    out = {}
+    for name, by_name in zip(sections, parts):
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        out[name] = (
+            [{"name": n[:100], "device_ms": ms, "calls": c} for n, (ms, c) in ranked[:top]],
+            sum(ms for ms, _ in by_name.values()),
+            sum(c for _, c in by_name.values()),
+        )
+    return out
+
+
+def layouts_phase(torch, counters):
+    """The ECAPA trunk in each layout ("nch", "nhc", "gemm") at full width:
+    one pipeline each (default config, seeded weights); a first request,
+    then two under sync debug mode "error" (launches counted, device ms by
+    stage), turns equal to the "nch" pipeline's; stage 2 alone and one
+    32-row trunk batch timed and profiled on that request's own inputs; the
+    MFA (3072 -> 3072) and a tdnn1 (1024 -> 1024) 1x1 conv alone in the
+    layout's form (device ms, TFLOP/s, the kernel it gets); in "nhc" the
+    ASP kernel against its plain version on a request's own inputs, and the
+    cost of the (B, T, C) -> (B, C, T) copy of x it needs; then small5s in
+    float32 (TF32 off) in "nhc" and "gemm" on the card against the CPU.
+    Returns each kernel's launches over the counted requests."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import layers as L
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+
+    totals = {name: 0 for name in counters}
+    clip = synth_clip(59.0, seed=0, quantize=False)
+    turns = {}
+    for layout in ecapa.ECAPA_LAYOUTS:
+        pipe = SpeakerDiarizationPipeline(seed=0, ecapa_layout=layout)
+        expected = per_request_launches(pipe, clip, counters)
+        captured = {}
+
+        def stage2(chunks, chosen, with_internals=False, _real=pipe._stage2, _c=captured):
+            _c.setdefault("stage2", (chunks, chosen))
+            return _real(chunks, chosen, with_internals)
+
+        def trunk(feats, lengths=None, _real=pipe.embedding_model.forward, _c=captured):
+            _c.setdefault("trunk", (feats, lengths))
+            return _real(feats, lengths)
+
+        pipe._stage2, pipe.embedding_model.forward = stage2, trunk
+        pipe(clip)  # the first request
+        strict_dispatch(torch, pipe)
+        requests = []
+        for _ in range(2):
+            (annotation, wall_ms), launched = counted(
+                torch, counters, lambda: timed(torch, lambda: pipe(clip))
+            )
+            for name, n in launched.items():
+                totals[name] += n
+            check(launched == expected, f"layouts ({layout}): launches {launched}, expected {expected}")
+            t = pipe.timings
+            requests.append(
+                {
+                    "wall_ms": wall_ms,
+                    "host_s_segmentation": t.segmentation,
+                    "device_ms": {"stage1": t.stage1_ms, "stage2": t.stage2_ms, "stage3": t.stage3_ms},
+                }
+            )
+        turns[layout] = turns_of(annotation)
+        check(
+            same_turns(turns[layout], turns["nch"]),
+            f"layouts ({layout}): turns differ from the nch pipeline's",
+        )
+        chunks, chosen = captured["stage2"]
+        feats, lengths = captured["trunk"]
+        with torch.inference_mode():
+            model = pipe.embedding_model
+            sections = {}
+            convs = {}
+            B, T = feats.shape[:2]
+            for name, conv in (("mfa", model.mfa.conv), ("block1.tdnn1", model.block1.tdnn1.conv)):
+                c_out, c_in = conv.weight.shape[:2]
+                x = torch.randn((B, T, c_in), device="cuda").to(pipe.emb_dtype)
+                if layout == "nch":
+                    x = x.transpose(1, 2).contiguous()
+                    fn = lambda x=x, conv=conv: conv(x)  # noqa: E731
+                else:
+                    form = L.conv1d_nhc if layout == "nhc" else L.conv1d_gemm
+                    fn = lambda x=x, conv=conv, form=form: ecapa.conv_nlc(form, x, conv)  # noqa: E731
+                ms = time_ms(torch, fn)
+                sections[name] = fn
+                convs[name] = {
+                    "shape": [B, T, c_in, c_out],
+                    "ms": ms,
+                    "tflop_per_s": 2.0 * B * T * c_in * c_out / (ms / 1e3) / 1e12,
+                }
+            trunk_ms = time_ms(torch, lambda: model(feats, lengths), reps=10)
+            sections["trunk"] = lambda: model(feats, lengths)
+            sections["stage2"] = lambda: pipe._stage2(chunks, chosen)
+            profiled = profile_sections(torch, sections)
+            for name in convs:
+                convs[name]["kernels"] = profiled[name][0][:2]
+            stage2_top, stage2_kernel_ms, _ = profiled["stage2"]
+            _, trunk_busy_ms, trunk_launches = profiled["trunk"]
+        emit(
+            {
+                "layouts": f"ecapa_layout={layout!r}, full width, 59 s clip, two requests "
+                "after the first, sync debug mode error",
+                "requests": requests,
+                "turns": len(turns[layout]),
+                "turns_equal_nch": True,
+                "launches_per_request": expected,
+                "stage2_kernel_ms": stage2_kernel_ms,
+                "stage2_top": stage2_top,
+                "trunk_batch": list(feats.shape),
+                "trunk_ms": trunk_ms,
+                "trunk_kernel_ms": trunk_busy_ms,
+                "trunk_kernels": trunk_launches,
+                "conv1x1": convs,
+            }
+        )
+        if layout == "nhc":
+            asp_check = nhc_asp_check(torch, pipe, clip)
+        del pipe
+    emit(asp_check)
+    for layout in ("nhc", "gemm"):
+        card = run_small5s("cuda", float32=True, ecapa_layout=layout)
+        cpu = run_small5s("cpu", float32=True, ecapa_layout=layout)
+        valid = ~cpu["too_short"]
+        err = float((card["emb"][valid] - cpu["emb"][valid]).abs().max())
+        check(torch.equal(card["too_short"], cpu["too_short"]), f"layouts small5s ({layout}): too_short")
+        check(
+            within(torch, card["emb"][valid], cpu["emb"][valid], 1e-3, 1e-4),
+            f"layouts small5s ({layout}): embeddings differ from the CPU (max abs {err})",
+        )
+        check(same_turns(card["turns"], cpu["turns"]), f"layouts small5s ({layout}): turns differ")
+        emit(
+            {
+                "layouts": f"small5s float32 (TF32 off), ecapa_layout={layout!r}, cuda vs cpu",
+                "emb_max_abs_err": err,
+                "tolerance": "rtol 1e-3, atol 1e-4",
+                "embedding_rows": int(valid.sum()),
+                "turns_equal": True,
+            }
+        )
+    return totals
+
+
+def nhc_asp_check(torch, pipe, clip):
+    """One more (uncounted) request of an "nhc" pipeline with the ASP
+    kernel's inputs captured: the kernel against its plain version on the
+    first batch (bf16 tolerance of the kernel phase), and the device ms of
+    the (B, T, C) -> (B, C, T) copy of x the layout needs beside the
+    kernel's."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import asp_cuda
+
+    real, seen = ecapa.asp_pool, []
+
+    def watched(x, a_tanh, w, bias, mask, eps=1e-12):
+        if not seen:
+            seen.append((x, a_tanh, w, bias, mask, eps))
+        return real(x, a_tanh, w, bias, mask, eps)
+
+    ecapa.asp_pool = watched
+    try:
+        pipe(clip)
+    finally:
+        ecapa.asp_pool = real
+    x, a_tanh, w, bias, mask, eps = seen[0]
+    check(x.dtype == torch.bfloat16 and x.is_contiguous(), "nhc ASP: x is not contiguous bf16")
+    with torch.inference_mode():
+        mk_, sk = asp_cuda.asp_pool(x, a_tanh, w, bias, mask, eps)
+        mp, sp = asp_cuda.asp_pool_plain(x, a_tanh, w, bias, mask, eps)
+        torch.cuda.synchronize()
+        err = max(
+            float((mk_.float() - mp.float()).abs().max()), float((sk.float() - sp.float()).abs().max())
+        )
+        check(
+            within(torch, mk_, mp, 8e-3, 1e-4) and within(torch, sk, sp, 8e-3, 1e-4),
+            f"nhc ASP: kernel differs from its plain version (max abs {err})",
+        )
+        x_btc = x.transpose(1, 2).contiguous()
+        kernel_ms = time_ms(torch, lambda: asp_cuda.asp_pool(x, a_tanh, w, bias, mask, eps))
+        copy_ms = time_ms(torch, lambda: x_btc.transpose(1, 2).contiguous())
+    return {
+        "layouts": "nhc: the bf16 ASP kernel on a request's first batch, against asp_pool_plain",
+        "x": list(x.shape),
+        "a_tanh_row_stride": a_tanh.stride(1),
+        "max_abs_err": err,
+        "tolerance": "rtol 8e-3, atol 1e-4 (mean and std)",
+        "kernel_ms": kernel_ms,
+        "x_copy_ms": copy_ms,
+        "x_copy_bytes": 2 * x.numel() * x.element_size(),
+    }
+
+
+def sinc_conv_phase(torch):
+    """The SincNet conv in both forms (``sinc_conv``: polyphase and
+    strided) on one (32, 80 000) batch with the default filterbank, at
+    precision "highest" (TF32 off) and "default" (cuDNN TF32): device ms,
+    the largest difference between the two forms and from the CPU's
+    float32 result, and the bound of the work."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import (
+        PyanNetConfig,
+        SincFilters,
+        sinc_conv,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        precision_scope,
+    )
+
+    cfg = PyanNetConfig()
+    rng = np.random.default_rng(3)
+    x_cpu = torch.from_numpy(rng.normal(size=(BATCH, 1, WINDOW)).astype(np.float32))
+    with torch.inference_mode():
+        f_cpu = SincFilters(cfg)()
+        want = sinc_conv(x_cpu, f_cpu, cfg.stride)
+        x, f = x_cpu.cuda(), f_cpu.cuda()
+        frames = want.shape[-1]
+        flops = 2.0 * BATCH * cfg.num_filters * cfg.kernel_size * frames
+        nbytes = 4.0 * (x.numel() + f.numel() + want.numel())
+        result = {
+            "sinc_conv": f"one ({BATCH}, {WINDOW}) batch, {cfg.num_filters} filters of "
+            f"{cfg.kernel_size} taps, stride {cfg.stride}",
+        }
+        for precision, dtype in (("highest", "float32"), ("default", "tfloat32")):
+            with precision_scope(precision):
+                outs = {}
+                for form, poly in (("polyphase", True), ("strided", False)):
+                    fn = lambda poly=poly: sinc_conv(x, f, cfg.stride, poly)  # noqa: E731
+                    outs[form] = fn().cpu()
+                    result[f"{precision}_{form}_ms"] = time_ms(torch, fn)
+                    result[f"{precision}_{form}_max_abs_err_vs_cpu"] = float(
+                        (outs[form] - want).abs().max()
+                    )
+                result[f"{precision}_forms_max_abs_diff"] = float(
+                    (outs["polyphase"] - outs["strided"]).abs().max()
+                )
+                if precision == "highest":
+                    for form, out in outs.items():
+                        check(
+                            bool(torch.isclose(out, want, rtol=1e-3, atol=1e-4).all()),
+                            f"sinc_conv ({form}, TF32 off) differs from the CPU",
+                        )
+            result[f"{precision}_bound_ms"] = bound_ms(nbytes, {dtype: flops})
+    result["max_abs_output"] = float(want.abs().max())
+    emit(result)
+    return result
+
+
+def ingest_phase(torch, counters):
+    """Weight ingest at full width: the seeded default models (the main
+    path's) written as the published artifacts (``pyannet_to_pyannote``
+    into a Lightning ``{"state_dict": ...}`` ``.bin``, ``ecapa_to_speechbrain``
+    into a speechbrain savedir's ``embedding_model.ckpt``, both by
+    ``torch.save``) and as an ``.npz`` tree whose filterbank is baked (the
+    card's own filters); ``load_params_auto`` of each (host s, arrays equal
+    to the source's); then one request each on pipelines built from what
+    was loaded (seed 1, so a part not loaded would show), with turns equal
+    to the source pipeline's. Returns each kernel's launches there."""
+    import shutil
+    import tempfile
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
+        ecapa_to_speechbrain,
+        flatten_pytree,
+        params_to_jax,
+        pyannet_to_pyannote,
+        save_checkpoint,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ingest import load_params_auto
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+
+    totals = {name: 0 for name in counters}
+    clip = synth_clip(59.0, seed=0, quantize=False)
+    source = SpeakerDiarizationPipeline(seed=0)
+    want = turns_of(source(clip))
+    params = params_to_jax(source.segmentation_model, source.embedding_model)
+    sn = params["segmentation"]["sincnet"]
+    filters = source.segmentation_model.sincnet.sinc().detach().cpu().numpy()
+    baked = dict(params, segmentation=dict(params["segmentation"], sincnet=dict(sn, sinc={"filters": filters})))
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+    tmp = tempfile.mkdtemp()
+    try:
+        paths = {
+            "lightning_bin": os.path.join(tmp, "pytorch_model.bin"),
+            "speechbrain_savedir": os.path.join(tmp, "savedir"),
+            "baked_npz": os.path.join(tmp, "baked"),
+        }
+        torch.save(
+            {
+                "state_dict": tensors(pyannet_to_pyannote(params["segmentation"])),
+                "hyper_parameters": {"sample_rate": 16000},
+            },
+            paths["lightning_bin"],
+        )
+        os.makedirs(paths["speechbrain_savedir"])
+        torch.save(
+            tensors(ecapa_to_speechbrain(params["embedding"])),
+            os.path.join(paths["speechbrain_savedir"], "embedding_model.ckpt"),
+        )
+        save_checkpoint(paths["baked_npz"], baked)
+        loaded, load_s, size_mb = {}, {}, {}
+        for name, path in paths.items():
+            files = [path] if os.path.isfile(path) else [os.path.join(path, f) for f in os.listdir(path)]
+            size_mb[name] = sum(os.path.getsize(f) for f in files) / 1e6
+            t0 = time.perf_counter()
+            loaded[name] = load_params_auto(path)
+            load_s[name] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, source_tree in (
+        ("lightning_bin", {"segmentation": params["segmentation"]}),
+        ("speechbrain_savedir", {"embedding": params["embedding"]}),
+        ("baked_npz", baked),
+    ):
+        got, exp = flatten_pytree(loaded[name]), flatten_pytree(source_tree)
+        check(
+            sorted(got) == sorted(exp) and all(np.array_equal(got[k], exp[k]) for k in exp),
+            f"ingest: {name} does not give back the source's arrays",
+        )
+    runs = {
+        "lightning_bin + speechbrain_savedir": {
+            "segmentation": loaded["lightning_bin"]["segmentation"],
+            "embedding": loaded["speechbrain_savedir"]["embedding"],
+        },
+        "baked_npz": loaded["baked_npz"],
+    }
+    requests = {}
+    for name, tree in runs.items():
+        pipe = SpeakerDiarizationPipeline(params=tree, seed=1)
+        check(
+            pipe.segmentation_model.sincnet.sinc.baked == (name == "baked_npz"),
+            f"ingest: {name}: the sinc filterbank's form",
+        )
+        expected = per_request_launches(pipe, clip, counters)
+        (annotation, wall_ms), launched = counted(
+            torch, counters, lambda: timed(torch, lambda: pipe(clip))
+        )
+        for k, n in launched.items():
+            totals[k] += n
+        check(launched == expected, f"ingest: {name}: launches {launched}, expected {expected}")
+        check(same_turns(turns_of(annotation), want), f"ingest: {name}: turns differ from the source's")
+        requests[name] = {"first_request_wall_ms": wall_ms, "turns": len(want), "turns_equal_source": True}
+    emit(
+        {
+            "ingest": "full-width artifacts written by torch.save, read by load_params_auto",
+            "artifact_mb": size_mb,
+            "load_params_auto_s": load_s,
+            "arrays_equal_source": True,
+            "requests": requests,
+        }
+    )
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1655,11 +2088,13 @@ def main() -> int:
         "linkage": (linkage_cuda.linkage_labels, "launches", 1),
     }
     totals, expected = main_path_phase(torch, counters)
-    # this slice's path: the float32 kernel, counted from 0 over its requests
+    # the float32 path: the float32 kernel, counted from 0 over its requests
     totals["asp_pool_float32"] = float32_requests_phase(torch, counters)["asp_pool_float32"]
-    # this slice's paths: every kernel's launches there added
-    for name, n in entry_points_phase(torch, counters).items():
-        totals[name] += n
+    # the other paths: every kernel's launches there added
+    for phase in (entry_points_phase, layouts_phase, ingest_phase):
+        for name, n in phase(torch, counters).items():
+            totals[name] += n
+    sinc_conv_phase(torch)
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
     tpu = "pyannote_audio_speaker_diarization_cpp_tpu"
     rows = [

@@ -9,40 +9,23 @@ the JAX package's cli.py, with the same arguments and output, plus
     python -m pyannote_audio_speaker_diarization_cpp_tpu_torch.cli audio.wav \\
         [--checkpoint DIR] [--num-speakers N] [--rttm out.rttm] [--device cpu]
 
-Weights: a converted checkpoint directory (``segmentation.npz`` and/or
-``embedding.npz``, models/convert.py ``save_checkpoint``); without one, or
-for a part the directory lacks, seeded (seed 0) random weights. The other
-artifacts the JAX package's CLI reads (pyannote ``.ckpt``/``.bin``,
-speechbrain savedir, ONNX) need its weight ingest (models/ingest.py), which
-the port does not have yet: they raise.
+Weights: whatever models/ingest.py ``load_params_auto`` reads — a
+converted checkpoint directory (``segmentation.npz`` and/or
+``embedding.npz``, models/convert.py ``save_checkpoint``), a pyannote
+Lightning checkpoint (``.ckpt``/``.bin``), a speechbrain savedir or its
+``embedding_model.ckpt``, an ONNX export (segment2.onnx / emd4.onnx
+layouts), or a directory holding a mix of them. Without one, or for a part
+the artifacts lack, seeded (seed 0) random weights, with a warning.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
-from .models.convert import load_checkpoint
+from .models.ingest import load_params_auto
 from .pipelines.diarization import SpeakerDiarizationPipeline
-
-
-def load_artifact(path: str) -> dict:
-    """The parts of a converted ``.npz`` checkpoint directory; raises for
-    any other artifact."""
-    has_npz = os.path.isdir(path) and any(
-        os.path.exists(os.path.join(path, f"{name}.npz"))
-        for name in ("segmentation", "embedding")
-    )
-    if not has_npz:
-        raise ValueError(
-            f"{path}: not a converted .npz checkpoint directory; other weight "
-            "formats (pyannote .ckpt/.bin, speechbrain savedir, ONNX) need the "
-            "weight-ingest port (models/ingest.py), which this package does not "
-            "have yet"
-        )
-    return load_checkpoint(path)
 
 
 def main(argv=None) -> int:
@@ -53,17 +36,18 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--checkpoint",
         default=None,
-        help="weights: a converted .npz checkpoint directory (segmentation.npz, embedding.npz)",
+        help="weights: .npz checkpoint dir, pyannote .ckpt/.bin, speechbrain savedir, "
+        "ONNX, or a directory of those",
     )
     parser.add_argument(
         "--seg-model",
         default=None,
-        help="segmentation weights only (a converted .npz directory), overrides --checkpoint",
+        help="segmentation weights only (.ckpt/.bin/.onnx/.npz dir), overrides --checkpoint",
     )
     parser.add_argument(
         "--emb-model",
         default=None,
-        help="embedding weights only (a converted .npz directory), overrides --checkpoint",
+        help="embedding weights only (.ckpt/.onnx/savedir/.npz dir), overrides --checkpoint",
     )
     parser.add_argument("--num-speakers", type=int, default=None)
     parser.add_argument("--min-speakers", type=int, default=None)
@@ -78,13 +62,13 @@ def main(argv=None) -> int:
 
     params = None
     if args.checkpoint:
-        params = load_artifact(args.checkpoint)
+        params = load_params_auto(args.checkpoint)
     if args.seg_model or args.emb_model:
         params = dict(params or {})
         if args.seg_model:
-            params["segmentation"] = load_artifact(args.seg_model)["segmentation"]
+            params["segmentation"] = load_params_auto(args.seg_model)["segmentation"]
         if args.emb_model:
-            params["embedding"] = load_artifact(args.emb_model)["embedding"]
+            params["embedding"] = load_params_auto(args.emb_model)["embedding"]
     if params is not None and ("segmentation" not in params or "embedding" not in params):
         # partial artifact: the pipeline fills the other model with seed-0
         # weights; say so, a silently random model makes the output

@@ -11,12 +11,22 @@ SE mean, ASP statistics and attention softmax.
 All convolutions are stride-1 "same" with reflect padding (speechbrain
 Conv1d default); BatchNorm runs in inference mode off running statistics.
 The attentive-statistics tail runs as the fused kernel of ops/asp_cuda.py.
+
+``layout`` picks how the trunk holds its activations, on the same
+parameters and the same state dict (the JAX package's ``ecapa_forward``
+layouts): "nch" (B, C, T), torch's own; "nhc" (B, T, C) end to end, every
+conv a channels-last cuDNN conv (models/layers.py ``conv1d_nhc``); "gemm"
+(B, T, C) with every conv as k shifted products (``conv1d_gemm``). In the
+channels-last layouts there is no entry transpose and the SE mean and the
+ASP statistics reduce over dim 1; the ASP kernel still reads x as
+(B, C, T), so x is copied into that layout for it (the attention's tanh
+writes its transposed rows in the one launch it takes anyway).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -40,6 +50,28 @@ class EcapaConfig:
     eps: float = 1e-12  # ASP statistics clamp
 
 
+ECAPA_LAYOUTS = ("nch", "nhc", "gemm")
+
+# the channels-last layouts' conv: fn(x (B, T, C_in), weight, bias,
+# dilation, padding, pad_mode) -> (B, T', C_out)
+_LAYOUT_CONV = {"nhc": L.conv1d_nhc, "gemm": L.conv1d_gemm}
+
+Conv = Callable[..., torch.Tensor]
+
+
+def conv_nlc(conv: Conv, x: torch.Tensor, m: nn.Conv1d) -> torch.Tensor:
+    """``m`` (its weight, bias, dilation and padding) applied by a
+    channels-last layout's ``conv`` to x (B, T, C_in)."""
+    return conv(
+        x,
+        m.weight,
+        m.bias,
+        m.dilation[0],
+        "same" if m.padding[0] else 0,
+        "reflect" if m.padding_mode == "reflect" else "zeros",
+    )
+
+
 class TDNNBlock(nn.Module):
     """Conv -> ReLU -> BatchNorm (speechbrain TDNNBlock order)."""
 
@@ -50,6 +82,9 @@ class TDNNBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(F.relu(self.conv(x)))
+
+    def forward_nlc(self, x: torch.Tensor, conv: Conv) -> torch.Tensor:
+        return L.batchnorm1d_nlc(F.relu(conv_nlc(conv, x, self.conv)), self.bn)
 
 
 class Res2NetBlock(nn.Module):
@@ -74,6 +109,15 @@ class Res2NetBlock(nn.Module):
             outs.append(y)
         return torch.cat(outs, dim=1)
 
+    def forward_nlc(self, x: torch.Tensor, conv: Conv) -> torch.Tensor:
+        parts = torch.chunk(x, self.scale, dim=2)
+        outs = [parts[0]]
+        y = None
+        for i in range(1, self.scale):
+            y = self.blocks[i - 1].forward_nlc(parts[i] if i == 1 else parts[i] + y, conv)
+            outs.append(y)
+        return torch.cat(outs, dim=2)
+
 
 class SEBlock(nn.Module):
     """Squeeze-excitation with masked temporal mean (speechbrain SEBlock)."""
@@ -92,6 +136,17 @@ class SEBlock(nn.Module):
         s = torch.sigmoid(self.conv2(F.relu(self.conv1(s))))
         return x * s
 
+    def forward_nlc(
+        self, x: torch.Tensor, lengths: Optional[torch.Tensor], conv: Conv
+    ) -> torch.Tensor:
+        if lengths is None:
+            s = x.mean(dim=1, keepdim=True)
+        else:
+            mask = L.length_mask(lengths, x.shape[1], x.dtype)[:, :, None]
+            s = (x * mask).sum(dim=1, keepdim=True) / mask.sum(dim=1, keepdim=True)
+        s = F.relu(conv_nlc(conv, s, self.conv1))
+        return x * torch.sigmoid(conv_nlc(conv, s, self.conv2))
+
 
 class SERes2NetBlock(nn.Module):
     def __init__(self, cfg: EcapaConfig, idx: int):
@@ -108,12 +163,19 @@ class SERes2NetBlock(nn.Module):
         out = self.tdnn2(self.res2net(self.tdnn1(x)))
         return self.se(out, lengths) + x
 
+    def forward_nlc(
+        self, x: torch.Tensor, lengths: Optional[torch.Tensor], conv: Conv
+    ) -> torch.Tensor:
+        out = self.tdnn1.forward_nlc(x, conv)
+        out = self.tdnn2.forward_nlc(self.res2net.forward_nlc(out, conv), conv)
+        return self.se.forward_nlc(out, lengths, conv) + x
 
-def masked_stats(x: torch.Tensor, m: torch.Tensor, eps: float):
-    """Weighted mean/std over time; ``m`` sums to 1 along time. One pass:
-    E[x^2] - E[x]^2, clamped at 0, then at eps under the square root."""
-    mean = (m * x).sum(dim=2)
-    sq = (m * x * x).sum(dim=2)
+
+def masked_stats(x: torch.Tensor, m: torch.Tensor, eps: float, dim: int = 2):
+    """Weighted mean/std over time (``dim``); ``m`` sums to 1 along it. One
+    pass: E[x^2] - E[x]^2, clamped at 0, then at eps under the square root."""
+    mean = (m * x).sum(dim=dim)
+    sq = (m * x * x).sum(dim=dim)
     var = torch.clamp(sq - mean * mean, min=0.0)
     return mean, torch.sqrt(torch.clamp(var, min=eps))
 
@@ -159,6 +221,35 @@ class AttentiveStatsPool(nn.Module):
         )
         return torch.cat([mean, std], dim=1)
 
+    def forward_nlc(
+        self, x: torch.Tensor, lengths: Optional[torch.Tensor], conv: Conv
+    ) -> torch.Tensor:
+        """(B, T, C) -> (B, 2C): ``forward`` with the time reductions over
+        dim 1. The fused tail reads x as (B, C, T), so x is copied into that
+        layout, and tanh(attn) is written transposed into its padded rows."""
+        B, T, C = x.shape
+        if lengths is None:
+            lengths = torch.ones((B,), device=x.device)
+        mask = L.length_mask(lengths, T, x.dtype)  # (B, T)
+        if self.cfg.global_context:
+            m3 = mask[:, :, None]
+            mean, std = masked_stats(x, m3 / m3.sum(dim=1, keepdim=True), self.cfg.eps, dim=1)
+            w = self.tdnn.conv.weight  # (A, 3C, 1)
+            pre = conv(x, w[:, :C], self.tdnn.conv.bias, 1, 0)
+            const = mean @ w[:, C : 2 * C, 0].T + std @ w[:, 2 * C :, 0].T
+            attn = L.batchnorm1d_nlc(F.relu(pre + const[:, None, :]), self.tdnn.bn)
+        else:
+            attn = self.tdnn.forward_nlc(x, conv)
+        mean, std = asp_pool(
+            x.transpose(1, 2).contiguous(),
+            attention_tanh(attn.transpose(1, 2)),
+            self.conv.weight[:, :, 0],
+            self.conv.bias,
+            mask,
+            eps=self.cfg.eps,
+        )
+        return torch.cat([mean, std], dim=1)
+
 
 class EcapaTDNN(nn.Module):
     """(B, T, n_mels) features, (B,) relative lengths -> (B, emb_dim).
@@ -166,15 +257,21 @@ class EcapaTDNN(nn.Module):
     Mirrors speechbrain ECAPA_TDNN.forward as exported to emd4.onnx
     (reference embeddings/export3.py:560-627): transpose to channels-first,
     block chain with skip-cat of blocks 1-3, MFA, ASP, BN, fc. Submodule and
-    parameter names follow the JAX package's pytree."""
+    parameter names follow the JAX package's pytree. ``layout``: one of
+    ``ECAPA_LAYOUTS`` (module docstring); the state dict is the same in
+    each."""
 
     def __init__(
         self,
         cfg: EcapaConfig = EcapaConfig(),
         generator: Optional[torch.Generator] = None,
+        layout: str = "nch",
     ):
         super().__init__()
+        if layout not in ECAPA_LAYOUTS:
+            raise ValueError(f"ecapa_layout must be 'nch', 'nhc' or 'gemm', got {layout!r}")
         self.cfg = cfg
+        self.layout = layout
         ch = cfg.channels
         self.block0 = TDNNBlock(cfg.in_channels, ch[0], cfg.kernel_sizes[0], cfg.dilations[0])
         self.block1 = SERes2NetBlock(cfg, 1)
@@ -200,6 +297,8 @@ class EcapaTDNN(nn.Module):
     def forward(
         self, feats: torch.Tensor, lengths: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        if self.layout != "nch":
+            return self.forward_nlc(feats, lengths, _LAYOUT_CONV[self.layout])
         x = feats.transpose(1, 2)  # (B, n_mels, T)
         x0 = self.block0(x)
         x1 = self.block1(x0, lengths)
@@ -208,3 +307,16 @@ class EcapaTDNN(nn.Module):
         x = self.mfa(torch.cat([x1, x2, x3], dim=1))
         pooled = self.asp_bn(self.asp(x, lengths))
         return self.fc(pooled[..., None])[..., 0]
+
+    def forward_nlc(
+        self, feats: torch.Tensor, lengths: Optional[torch.Tensor], conv: Conv
+    ) -> torch.Tensor:
+        """``forward`` in a channels-last layout: feats (B, T, n_mels) as
+        they come, every activation (B, T, C)."""
+        x0 = self.block0.forward_nlc(feats, conv)
+        x1 = self.block1.forward_nlc(x0, lengths, conv)
+        x2 = self.block2.forward_nlc(x1, lengths, conv)
+        x3 = self.block3.forward_nlc(x2, lengths, conv)
+        x = self.mfa.forward_nlc(torch.cat([x1, x2, x3], dim=2), conv)
+        pooled = L.batchnorm1d_nlc(self.asp.forward_nlc(x, lengths, conv), self.asp_bn)
+        return conv_nlc(conv, pooled[:, None, :], self.fc)[:, 0, :]

@@ -3,10 +3,12 @@
 Conventions match the JAX package's parameter pytrees (which already use
 torch's): conv weights are (out, in, k), linear weights (out, in), LSTM gates
 ordered i,f,g,o. What torch does not ship is here: "same" convolutions with
-reflect padding (speechbrain's Conv1d default), instance norm over a valid
-prefix of each row, speechbrain's relative-length mask, a BiLSTM stack
-whose reverse direction starts at each row's true end, and the copy of a
-host tensor to the card that does not wait for it.
+reflect padding (speechbrain's Conv1d default), channels-last (B, T, C)
+convolutions and batch norm (the ECAPA trunk's "nhc" and "gemm" layouts),
+instance norm over a valid prefix of each row, speechbrain's
+relative-length mask, a BiLSTM stack whose reverse direction starts at each
+row's true end, and the copy of a host tensor to the card that does not
+wait for it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.nn.utils.rnn import PackedSequence
 
 
@@ -71,6 +74,104 @@ def conv1d_same(
         padding=pad,
         padding_mode="reflect" if pad else "zeros",
     )
+
+
+# ---------------------------------------------------------------------------
+# channels-last (B, T, C) forms, for the ECAPA trunk's "nhc" and "gemm"
+# layouts (models/ecapa.py): the same math on the same torch-layout weights
+# ---------------------------------------------------------------------------
+
+
+def reflect_pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T + 2 pad, C), reflected along T (torch's "reflect":
+    the edge sample is not repeated)."""
+    if pad == 0:
+        return x
+    return torch.cat([x[:, 1 : pad + 1].flip(1), x, x[:, -pad - 1 : -1].flip(1)], dim=1)
+
+
+def conv1d_nhc(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    dilation: int = 1,
+    padding="same",
+    pad_mode: str = "zeros",
+) -> torch.Tensor:
+    """(B, T, C_in) -> (B, T', C_out): conv1d in channels-last layout, with
+    the (C_out, C_in, k) weight. The activations go to cuDNN as a
+    channels-last (B, C, T, 1) conv2d over x's own memory, and the output
+    comes back as a (B, T', C_out) view of the channels-last result.
+    ``padding``: "same" ((k-1)*dilation/2 a side, reflected when
+    ``pad_mode`` is "reflect") or a number of zeros a side."""
+    k = weight.shape[-1]
+    if padding == "same":
+        pad = (k - 1) * dilation // 2
+        if pad_mode == "reflect":
+            x, pad = reflect_pad_time(x, pad), 0
+    else:
+        pad = int(padding)
+    x = x.contiguous()
+    B, T, C = x.shape
+    O = weight.shape[0]
+    # channels-last strides in full, the size-1 width's included: PyTorch
+    # reads the memory format from the strides, and a width stride of 1
+    # makes it take x for NCHW and copy it into that layout
+    x4 = x.as_strided((B, C, T, 1), (T * C, 1, C, C))
+    w = weight.permute(0, 2, 1).contiguous()  # (O, k, C): a view when k = 1
+    w4 = w.as_strided((O, C, k, 1), (k * C, 1, C, C))
+    out = F.conv2d(x4, w4, bias, padding=(pad, 0), dilation=(dilation, 1))
+    return out.squeeze(-1).transpose(1, 2)
+
+
+def conv1d_gemm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    dilation: int = 1,
+    padding="same",
+    pad_mode: str = "zeros",
+) -> torch.Tensor:
+    """(B, T, C_in) -> (B, T, C_out) "same" conv1d as k shifted products:
+    tap j is the product of the input shifted by j*dilation, as
+    (B*T, C_in) rows, with the (C_in, C_out) weight of that tap
+    (``F.linear``, the bias added in tap 0's product), and the k products
+    are summed. Stride 1, odd k, "same" geometry only (every ECAPA conv);
+    k = 1 is a single product over the whole batch."""
+    k = weight.shape[-1]
+    if k > 1 and (padding != "same" or k % 2 == 0):
+        raise ValueError(
+            "conv1d_gemm supports only odd-k 'same' geometry "
+            f"(got k={k}, padding={padding!r})"
+        )
+    T = x.shape[1]
+    pad = (k - 1) * dilation // 2
+    if pad == 0:
+        xp = x
+    elif pad_mode == "reflect":
+        xp = reflect_pad_time(x, pad)
+    else:
+        xp = F.pad(x, (0, 0, pad, pad))
+    out = F.linear(xp[:, :T], weight[:, :, 0], bias)
+    for tap in range(1, k):
+        out = out + F.linear(xp[:, tap * dilation : tap * dilation + T], weight[:, :, tap])
+    return out
+
+
+def batchnorm1d_nlc(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """Inference-mode ``bn`` over channels-last (B, C) or (B, T, C): its
+    running statistics, channels on the last axis."""
+    flat = F.batch_norm(
+        x.reshape(-1, x.shape[-1]),
+        bn.running_mean,
+        bn.running_var,
+        bn.weight,
+        bn.bias,
+        False,
+        0.0,
+        bn.eps,
+    )
+    return flat.reshape(x.shape)
 
 
 def instancenorm1d(

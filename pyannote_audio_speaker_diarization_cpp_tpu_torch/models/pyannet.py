@@ -75,11 +75,22 @@ def pyannet_valid_chain(valid_samples, cfg: PyanNetConfig = PyanNetConfig()):
 
 
 class SincFilters(nn.Module):
-    """Learnable band edges of the SincNet filterbank."""
+    """The SincNet filterbank: learnable band edges (``low_hz``, ``band_hz``)
+    or, with ``baked=True``, a fixed (num_filters, 1, kernel_size) ``filters``
+    buffer, which ``forward`` returns as it is. A baked filterbank is what an
+    ONNX export with constant-folded filters gives (models/ingest.py
+    ``pyannet_from_onnx``); models/convert.py ``build_pyannet`` picks the
+    form from the params tree."""
 
-    def __init__(self, cfg: PyanNetConfig):
+    def __init__(self, cfg: PyanNetConfig, baked: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.baked = baked
+        if baked:
+            self.register_buffer(
+                "filters", torch.zeros((cfg.num_filters, 1, cfg.kernel_size))
+            )
+            return
         # mel-spaced initial band edges, classic SincNet parameterization
         # (Ravanelli & Bengio, "Speaker Recognition from Raw Waveform with
         # SincNet"; the filterbank behind pyannote's SincNet block)
@@ -101,8 +112,10 @@ class SincFilters(nn.Module):
 
         Classic SincNet construction: bandpass = (sin(2pi f_hi n) -
         sin(2pi f_lo n)) / (n/2), hamming-windowed, center sample = 2*band,
-        normalized by 2*band.
+        normalized by 2*band. A baked filterbank comes back as it is.
         """
+        if self.baked:
+            return self.filters
         cfg = self.cfg
         dev = self.low_hz.device
         low = cfg.min_low_hz + torch.abs(self.low_hz)
@@ -130,12 +143,34 @@ class SincFilters(nn.Module):
         return (bp / (2 * band[:, None]))[:, None, :]
 
 
+def sinc_conv(
+    x: torch.Tensor, filters: torch.Tensor, stride: int, polyphase: bool = True
+) -> torch.Tensor:
+    """The SincNet conv: (B, 1, N) waveforms, (O, 1, K) filters ->
+    (B, O, (N - K) // stride + 1).
+
+    ``polyphase`` and N % stride == 0: the stride is folded into input
+    channels (x_r[t] = x[stride t + r]) and the taps, padded with zeros to
+    q = ceil(K / stride) per phase, into an (O, stride, q) weight, so the
+    k-K stride-s conv becomes a dense stride-1 conv of q taps over s
+    channels (the JAX package's sincnet_forward): the same sums up to
+    float32 reassociation. Otherwise the strided conv."""
+    B, _, N = x.shape
+    O, _, K = filters.shape
+    if not polyphase or N % stride:
+        return F.conv1d(x, filters, stride=stride)
+    q = -(-K // stride)
+    w = F.pad(filters[:, 0, :], (0, q * stride - K)).reshape(O, q, stride).transpose(1, 2)
+    xr = x[:, 0, :].reshape(B, N // stride, stride).transpose(1, 2)
+    return F.conv1d(xr, w)[:, :, : (N - K) // stride + 1]
+
+
 class SincNet(nn.Module):
-    def __init__(self, cfg: PyanNetConfig):
+    def __init__(self, cfg: PyanNetConfig, baked_sinc: bool = False):
         super().__init__()
         self.cfg = cfg
         self.wav_norm = L.InstanceNorm(1)
-        self.sinc = SincFilters(cfg)
+        self.sinc = SincFilters(cfg, baked=baked_sinc)
         self.norm0 = L.InstanceNorm(cfg.num_filters)
         self.conv1 = nn.Conv1d(cfg.num_filters, cfg.conv_channels, 5)
         self.norm1 = L.InstanceNorm(cfg.conv_channels)
@@ -147,7 +182,8 @@ class SincNet(nn.Module):
     ) -> torch.Tensor:
         """(B, num_samples) waveforms -> (B, conv_channels, frames).
 
-        InstanceNorm -> sinc conv (stride 10) -> |.| -> pool3 -> IN -> leaky
+        InstanceNorm -> sinc conv (stride 10, ``sinc_conv``: polyphase when
+        the length divides by the stride) -> |.| -> pool3 -> IN -> leaky
         -> conv5 -> pool3 -> IN -> leaky -> conv5 -> pool3 -> IN -> leaky
         (pyannote.audio SincNet). ``valid_samples``: optional (B,) true
         lengths; instance-norm statistics then run over each stage's valid
@@ -159,7 +195,7 @@ class SincNet(nn.Module):
             _, v2, _, v4, _, v6 = pyannet_valid_chain(valid_samples, cfg)
             v_wav, v_norm0, v_norm1, v_norm2 = valid_samples, v2, v4, v6
         out = self.wav_norm(x[:, None, :], v_wav)
-        out = F.conv1d(out, self.sinc(), stride=cfg.stride)
+        out = sinc_conv(out, self.sinc(), cfg.stride)
         out = F.max_pool1d(torch.abs(out), 3, 3)
         out = F.leaky_relu(self.norm0(out, v_norm0), cfg.leaky_slope)
         out = F.max_pool1d(self.conv1(out), 3, 3)
@@ -173,16 +209,18 @@ class PyanNet(nn.Module):
 
     Submodule and parameter names follow the JAX package's pytree, with
     each BiLSTM layer an ``nn.LSTM(bidirectional=True)`` (models/convert.py
-    params_from_jax maps the names)."""
+    params_from_jax maps the names). ``baked_sinc``: the filterbank is a
+    fixed buffer (``SincFilters``), not learnable band edges."""
 
     def __init__(
         self,
         cfg: PyanNetConfig = PyanNetConfig(),
         generator: Optional[torch.Generator] = None,
+        baked_sinc: bool = False,
     ):
         super().__init__()
         self.cfg = cfg
-        self.sincnet = SincNet(cfg)
+        self.sincnet = SincNet(cfg, baked_sinc)
         self.lstm = nn.ModuleList()
         in_size = cfg.conv_channels
         for _ in range(cfg.lstm_layers):

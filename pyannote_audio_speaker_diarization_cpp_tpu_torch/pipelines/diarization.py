@@ -60,7 +60,7 @@ from ..io import wav as wavio
 from ..models import convert
 from ..models import layers as L
 from ..models.ecapa import EcapaConfig, EcapaTDNN
-from ..models.pyannet import PyanNet, PyanNetConfig, pyannet_num_frames, pyannet_valid_chain
+from ..models.pyannet import PyanNetConfig, pyannet_num_frames, pyannet_valid_chain
 from ..ops import _cuda_lib
 from ..ops import binarize as bz
 from ..ops import frontend as fe
@@ -268,6 +268,10 @@ class SpeakerDiarizationPipeline:
     device result has no cluster or more than ``k_max``, takes the host
     clusterer. False always takes the host clusterer; True raises on an
     incompatible clusterer.
+
+    ``ecapa_layout``: how the ECAPA trunk holds its activations in every
+    stage-2 entry point — "nch" (the default, as in the JAX package), "nhc"
+    or "gemm" (models/ecapa.py); same weights, same state dict.
     """
 
     # the largest merge loop (train rows T) the device stage 3 takes: T is
@@ -291,6 +295,7 @@ class SpeakerDiarizationPipeline:
         device_clustering: Union[str, bool] = "auto",
         device_cluster_rows: int = 6144,
         k_max: int = 8,
+        ecapa_layout: str = "nch",
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
@@ -304,11 +309,12 @@ class SpeakerDiarizationPipeline:
         )
         self.ecapa_cfg = ecapa_cfg or EcapaConfig(in_channels=config.frontend.n_mels)
         generator = torch.Generator().manual_seed(seed)
-        seg_model = PyanNet(self.pyannet_cfg, generator=generator)
-        emb_model = EcapaTDNN(self.ecapa_cfg, generator=generator)
         # a part missing from ``params`` keeps its seeded random weights
-        if params is not None and "segmentation" in params:
-            seg_model.load_state_dict(convert.pyannet_state_from_tree(params["segmentation"]))
+        seg_model = convert.build_pyannet(
+            (params or {}).get("segmentation"), self.pyannet_cfg, generator
+        )
+        emb_model = EcapaTDNN(self.ecapa_cfg, generator=generator, layout=ecapa_layout)
+        self.ecapa_layout = ecapa_layout
         if params is not None and "embedding" in params:
             emb_model.load_state_dict(convert.ecapa_state_from_tree(params["embedding"]))
         # compute_dtype="bfloat16": the ECAPA trunk runs with bf16 weights

@@ -32,7 +32,8 @@ class EmbeddingPipeline:
     ``params``: ``{"embedding": tree}`` in the JAX package's layout, or None
     for seeded random weights. ``device``: None runs on the CUDA card and
     raises without one; ``"cpu"`` runs on the CPU. ``precision``: "default"
-    or "highest" (TF32 off)."""
+    or "highest" (TF32 off). ``ecapa_layout``: "nch", "nhc" or "gemm", as
+    the diarization pipeline takes it."""
 
     def __init__(
         self,
@@ -43,13 +44,16 @@ class EmbeddingPipeline:
         precision: str = "default",
         ecapa_cfg: Optional[EcapaConfig] = None,
         device=None,
+        ecapa_layout: str = "nch",
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
         self.device = resolve_device(device)
         self.config = config
         self.ecapa_cfg = ecapa_cfg or EcapaConfig(in_channels=config.frontend.n_mels)
-        model = EcapaTDNN(self.ecapa_cfg, generator=torch.Generator().manual_seed(seed))
+        model = EcapaTDNN(
+            self.ecapa_cfg, generator=torch.Generator().manual_seed(seed), layout=ecapa_layout
+        )
         if params is not None:
             model.load_state_dict(convert.ecapa_state_from_tree(params["embedding"]))
         self.model = model.to(self.device).eval()

@@ -22,7 +22,7 @@ from ..core.annotation import Annotation
 from ..core.sliding_window import SlidingWindow, SlidingWindowFeature
 from ..models import convert
 from ..models import layers as L
-from ..models.pyannet import PyanNet, PyanNetConfig, pyannet_num_frames
+from ..models.pyannet import PyanNetConfig, pyannet_num_frames
 from ..ops import windows as win
 from ..ops.aggregate import plan_aggregation
 from . import reconstruct as rec
@@ -53,9 +53,11 @@ class SegmentationPipeline:
             sample_rate=config.segmentation.sample_rate,
             num_classes=config.segmentation.num_speakers,
         )
-        model = PyanNet(self.pyannet_cfg, generator=torch.Generator().manual_seed(seed))
-        if params is not None:
-            model.load_state_dict(convert.pyannet_state_from_tree(params["segmentation"]))
+        model = convert.build_pyannet(
+            None if params is None else params["segmentation"],
+            self.pyannet_cfg,
+            torch.Generator().manual_seed(seed),
+        )
         self.model = model.to(self.device).eval()
         self.seg_batch = seg_batch or config.segmentation.batch_size
         if precision not in PRECISIONS:

@@ -6,23 +6,35 @@ float32 at HIGHEST, host clustering on both sides). The printed turn lines,
 the ``== path`` headers of a several-file run (through ``map``) and the RTTM
 must be what the JAX pipeline's turns give in the same format; the stderr
 timing lines must be there; a converted ``.npz`` directory loads, a partial
-one warns and keeps seed-0 weights for the other model, and any other
-artifact raises, naming the missing ingest port.
+one warns and keeps seed-0 weights for the other model; a pyannote ``.ckpt``,
+a constant-folded segment ONNX and a speechbrain ``embedding_model.ckpt``
+load into the weights the JAX package's CLI would load from them, and an
+empty directory raises ``FileNotFoundError``, as there.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _cfg import TINY1S_CFG
+from _cfg import SMALL_ECAPA, SMALL_PYANNET, TINY1S_CFG
+from pyannote_audio_speaker_diarization_cpp_tpu.models import ingest as jingest
 from pyannote_audio_speaker_diarization_cpp_tpu_torch import cli
 from pyannote_audio_speaker_diarization_cpp_tpu_torch.io.wav import write_wav
+from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import convert as tconvert
 from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import save_checkpoint
+from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import PyanNetConfig
 from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
     SpeakerDiarizationPipeline,
 )
 from _torch_threads import two_torch_threads  # noqa: F401
+from test_convert_real_scale import (
+    make_pyannote_pyannet_state_dict,
+    make_speechbrain_ecapa_state_dict,
+)
+from test_ingest import _write_segment_onnx
 from test_torch_pipeline import build_pair, synth_audio
 
 
@@ -137,24 +149,96 @@ def test_partial_artifact_warns_and_keeps_seed0_weights(setup, built, capsys, tm
         assert torch.equal(loaded[name], value), name
 
 
+# the JAX package's load_params_auto reads a PyanNet at the published layer
+# counts and filterbank (4 LSTM layers, 80 filters of 251 taps: the folded
+# ONNX filterbank is found by that shape); the other widths stay small
+INGEST_PYANNET = dataclasses.replace(SMALL_PYANNET, num_filters=80, lstm_layers=4)
+
+
+@pytest.fixture(scope="module")
+def ingest_artifacts(tmp_path_factory):
+    """A pyannote Lightning ``.ckpt``, a constant-folded segment ONNX, a
+    speechbrain ``embedding_model.ckpt`` and an empty directory."""
+    directory = tmp_path_factory.mktemp("ingest")
+    rng = np.random.default_rng(21)
+    seg = make_pyannote_pyannet_state_dict(rng, INGEST_PYANNET)
+    emb = make_speechbrain_ecapa_state_dict(rng, SMALL_ECAPA)
+    torch.save(
+        {"state_dict": {k: torch.from_numpy(v.copy()) for k, v in seg.items()}},
+        str(directory / "model.ckpt"),
+    )
+    _write_segment_onnx(str(directory / "segment2.onnx"), seg, INGEST_PYANNET, folded=True)
+    torch.save(
+        {k: torch.from_numpy(np.asarray(v).copy()) for k, v in emb.items()},
+        str(directory / "embedding_model.ckpt"),
+    )
+    (directory / "empty_dir").mkdir()
+    return directory
+
+
 @pytest.mark.parametrize(
-    "flag, artifact",
+    "flag, artifact, part",
     [
-        ("--checkpoint", "model.ckpt"),
-        ("--seg-model", "segment2.onnx"),
-        ("--emb-model", "embedding_model.ckpt"),
-        ("--checkpoint", "empty_dir"),
+        ("--checkpoint", "model.ckpt", "segmentation"),
+        ("--seg-model", "segment2.onnx", "segmentation"),
+        ("--emb-model", "embedding_model.ckpt", "embedding"),
+        ("--checkpoint", "empty_dir", None),
     ],
 )
-def test_other_artifacts_raise_naming_the_ingest_port(setup, built, tmp_path, flag, artifact):
-    path = tmp_path / artifact
-    if artifact == "empty_dir":
-        path.mkdir()
-    else:
-        path.write_bytes(b"\x00" * 16)
-    with pytest.raises(ValueError, match="ingest"):
-        cli.main([setup["paths"][0], "--device", "cpu", flag, str(path)])
-    assert not built["kwargs"]
+def test_ingested_artifacts_load_as_the_jax_cli_loads_them(
+    setup, ingest_artifacts, monkeypatch, capsys, flag, artifact, part
+):
+    """The CLI reads every artifact through models/ingest.py: the pipeline
+    gets the part the JAX package's ``load_params_auto`` reads from the
+    file (the folded ONNX as a baked filterbank), seed-0 weights for the
+    other part with a warning, and runs; an empty directory raises
+    ``FileNotFoundError``, as in the JAX package."""
+    tp = setup["tp"]
+    built = []
+
+    def factory(params=None, seed=0, seg_batch=None, emb_batch=None, device=None):
+        pipe = SpeakerDiarizationPipeline(
+            tp.config,
+            params=params,
+            seed=seed,
+            seg_batch=8,
+            emb_batch=8,
+            precision="highest",
+            pyannet_cfg=PyanNetConfig(**dataclasses.asdict(INGEST_PYANNET)),
+            ecapa_cfg=tp.ecapa_cfg,
+            device=device,
+            device_clustering=False,
+        )
+        built.append((params, pipe))
+        return pipe
+
+    monkeypatch.setattr(cli, "SpeakerDiarizationPipeline", factory)
+    path = str(ingest_artifacts / artifact)
+    argv = [setup["paths"][0], "--device", "cpu", flag, path]
+    if part is None:
+        with pytest.raises(FileNotFoundError, match="no loadable weights"):
+            jingest.load_params_auto(path)
+        with pytest.raises(FileNotFoundError, match="no loadable weights"):
+            cli.main(argv)
+        assert not built
+        return
+    assert cli.main(argv) == 0
+    out, err = capsys.readouterr()
+    assert out.splitlines() and "warning: no" in err
+    (params, pipe), = built
+    assert set(params) == {part}
+    want = jax.tree.map(np.asarray, jingest.load_params_auto(path)[part])
+    model = pipe.segmentation_model if part == "segmentation" else pipe.embedding_model
+    state = (
+        tconvert.pyannet_state_from_tree(want)
+        if part == "segmentation"
+        else tconvert.ecapa_state_from_tree(want)
+    )
+    assert sorted(model.state_dict()) == sorted(state)
+    for name, value in state.items():
+        assert torch.equal(model.state_dict()[name], value), name
+    if artifact == "segment2.onnx":
+        assert model.sincnet.sinc.baked
 
 
 def test_device_defaults_to_the_card(setup, built, capsys):

@@ -94,9 +94,11 @@ def test_port_imports_and_runs_without_jax():
 ENTRY_POINT_MODULES = (
     "cli",
     "metrics.der",
+    "models.ingest",
     "pipelines.embedding",
     "pipelines.segmentation",
     "utils.debug_dump",
+    "utils.flops",
     "utils.instrumented",
     "utils.timing",
 )
@@ -113,6 +115,9 @@ from {PORT} import cli
 from {PORT}.config import DiarizationConfig, SegmentationConfig
 from {PORT}.io.wav import write_wav
 from {PORT}.metrics.der import der
+from {PORT}.models.convert import params_to_jax, save_checkpoint
+from {PORT}.models.ingest import load_params_auto
+from {PORT}.utils.flops import ecapa_flops, pyannet_flops
 from {PORT}.models.ecapa import EcapaConfig
 from {PORT}.models.pyannet import PyanNetConfig, pyannet_num_frames
 from {PORT}.pipelines.diarization import SpeakerDiarizationPipeline
@@ -142,6 +147,10 @@ assert str(run_with_dumps(pipe, wave, DumpSession(write_text=False))) == str(a)
 assert der(a, a) == 0.0
 seg = SegmentationPipeline(cfg, pyannet_cfg=small["pyannet_cfg"], device="cpu")(wave)
 emb = EmbeddingPipeline(cfg, ecapa_cfg=small["ecapa_cfg"], device="cpu")(wave[None, :16000])
+ckpt = tempfile.mkdtemp()
+save_checkpoint(ckpt, params_to_jax(pipe.segmentation_model, pipe.embedding_model))
+assert set(load_params_auto(ckpt)) == {{"segmentation", "embedding"}}
+assert pyannet_flops(16000, small["pyannet_cfg"]) > 0 and ecapa_flops(101, small["ecapa_cfg"]) > 0
 timer = StageTimer()
 with timer.time("x"):
     pass

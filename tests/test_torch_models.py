@@ -164,3 +164,20 @@ def test_seeded_init_is_deterministic():
     a, b, c = build(3), build(3), build(4)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["published", "small"])
+def test_flops_equal_the_jax_package(small):
+    """utils/flops.py: the port's analytic counts are the JAX package's,
+    number for number, at the published widths and the tests' small ones."""
+    from pyannote_audio_speaker_diarization_cpp_tpu.utils import flops as jflops
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.utils import flops as tflops
+
+    seg_cfg = SMALL_PYANNET if small else jpyannet.PyanNetConfig()
+    emb_cfg = SMALL_ECAPA if small else jecapa.EcapaConfig()
+    for n in (16000, 80000, 80003):
+        want = jflops.pyannet_flops(n, seg_cfg)
+        assert want > 0 and tflops.pyannet_flops(n, port_pyannet_cfg(seg_cfg)) == want
+    for t in (101, 501):
+        want = jflops.ecapa_flops(t, emb_cfg)
+        assert want > 0 and tflops.ecapa_flops(t, port_ecapa_cfg(emb_cfg)) == want

@@ -65,9 +65,9 @@ def port_config(cfg) -> tcfg.DiarizationConfig:
     return tcfg.DiarizationConfig(**fields)
 
 
-def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False):
+def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False, ecapa_layout="nch"):
     """(jax pipeline, port pipeline) on the same weights, conservative mode,
-    both with the same ``device_clustering``."""
+    both with the same ``device_clustering`` and ``ecapa_layout``."""
     jax_cfg = dataclasses.replace(jax_cfg, compute_dtype="float32", transfer_dtype="float32")
     jp = JaxPipeline(
         jax_cfg,
@@ -79,6 +79,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False):
         ecapa_cfg=SMALL_ECAPA,
         precision=jax.lax.Precision.HIGHEST,
         device_clustering=device_clustering,
+        ecapa_layout=ecapa_layout,
     )
     tp = SpeakerDiarizationPipeline(
         port_config(jax_cfg),
@@ -90,6 +91,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False):
         ecapa_cfg=EcapaConfig(**dataclasses.asdict(SMALL_ECAPA)),
         device="cpu",
         device_clustering=device_clustering,
+        ecapa_layout=ecapa_layout,
     )
     return jp, tp
 
