@@ -6,7 +6,8 @@
 Phases, each a JSON line on stdout:
   1. device: the card (as nvidia-smi reports its name and power limit),
      torch/CUDA versions, and the wall time of building the CUDA kernels
-     from csrc/ (one nvcc per source, all started together);
+     from csrc/ (one nvcc per source, all started together) and the native
+     host library (runtime/native, g++);
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes the main path gives it (a 32-row stage-2 batch
      of 5 s windows), with its device time (ms; call_ms adds the host's
@@ -87,11 +88,25 @@ Phases, each a JSON line on stdout:
      load_params_auto of each (host s; the arrays equal the source's), one
      request each on pipelines built from them, turns equal to the
      source's;
- 11. sinc_conv: the SincNet conv's polyphase and strided forms on one
+ 11. streaming: pipelines/streaming.py at full width on the host route
+     (the 59 s clip in 0.5 s blocks, emit_every 8, recluster_every 4):
+     the flush equal to the same pipeline's offline request and
+     partition-equivalent to a default device-route request, the native
+     linkage run in the flush (327 train rows), launches 3 a 32-chunk
+     range; feed ms by whether it reclustered, flush ms, the padded share,
+     the stream's scores and embeddings against one run_chunks of the
+     whole clip; a 300 s clip in 1 s blocks under the doubling schedule
+     (flush equal to offline); small5s with the gate checkpoint in float32
+     on a 30 s silence-gapped clip, every emission on the card equal to the
+     CPU's and the frozen prefix engaged; the spectral clusterer at full
+     width (no linkage launch) and small5s card against CPU; the native
+     linkage against scipy at the main path's N, 1000 and 2000 (host ms,
+     with the host's CPU model);
+ 12. sinc_conv: the SincNet conv's polyphase and strided forms on one
      (32, 80 000) batch, TF32 off and on: device ms, the largest
      difference between the forms and from the CPU, the bound;
- 12. the kernel summary line (launches: float32 ASP's from phase 7, the
-     others' from phase 6, each plus phases 8-10's), the nvidia-smi line,
+ 13. the kernel summary line (launches: float32 ASP's from phase 7, the
+     others' from phase 6, each plus phases 8-11's), the nvidia-smi line,
      and last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -669,7 +684,12 @@ def strict_dispatch(torch, pipe):
 
 
 def small5s_pipeline(
-    device: str, float32: bool, params=None, device_clustering="auto", ecapa_layout="nch"
+    device: str,
+    float32: bool,
+    params=None,
+    device_clustering="auto",
+    ecapa_layout="nch",
+    clusterer="ahc",
 ):
     """The small5s test configuration (the real 5 s / 0.5 s recipe, small
     model widths, seed 0): float32 compute and transfer at precision
@@ -701,6 +721,7 @@ def small5s_pipeline(
         device=device,
         device_clustering=device_clustering,
         ecapa_layout=ecapa_layout,
+        clusterer=clusterer,
     )
 
 
@@ -2037,6 +2058,426 @@ def ingest_phase(torch, counters):
     return totals
 
 
+def gapped_clip(seconds: float = 30.0, seed: int = 0, sr: int = 16000) -> np.ndarray:
+    """Tone-and-noise speech turns of 2-4 s from three voices, separated by
+    zero-filled gaps of 1.5-2.5 s (the gate model, an energy voice-activity
+    detector, gives count == 0 there), int16-quantized: the clip on which
+    the stream's frozen prefix engages."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(int(seconds * sr), np.float32)
+    voices = ((220.0, 1100.0), (410.0, 2500.0), (150.0, 700.0))
+    t, i = 0.5, 0
+    while True:
+        dur = rng.uniform(2.0, 4.0)
+        if t + dur > seconds - 0.3:
+            break
+        f0, f1 = voices[i % 3]
+        n0, n = int(t * sr), int(dur * sr)
+        tt = np.arange(n) / sr
+        out[n0 : n0 + n] = (
+            0.3 * np.sin(2 * np.pi * f0 * tt)
+            + 0.2 * np.sin(2 * np.pi * f1 * tt * (1 + 0.05 * np.sin(2 * np.pi * 0.7 * tt)))
+            + 0.05 * rng.standard_normal(n)
+        )
+        t += dur + rng.uniform(1.5, 2.5)
+        i += 1
+    q = np.clip(np.round(out * 20000.0), -32768, 32767).astype(np.int16)
+    return q.astype(np.float32) / 32768.0
+
+
+def turns_well_formed(annotation, seconds: float) -> bool:
+    turns = annotation.turns()
+    return len(turns) > 0 and all(
+        np.isfinite([t.start, t.end]).all() and 0.0 <= t.start < t.end <= seconds + 1e-6
+        for t in turns
+    )
+
+
+def partition_of(annotation):
+    """Each label's set of spans, as a sorted list of sets (the partition
+    the turns make, whatever the labels are called)."""
+    groups = {}
+    for t in annotation.turns():
+        groups.setdefault(t.label, set()).add((round(t.start, 6), round(t.end, 6)))
+    return sorted(map(frozenset, groups.values()), key=sorted)
+
+
+def feed_stats(stream):
+    """Median and max ms of the emitting feeds, by whether a full recluster
+    ran in them."""
+    kinds = {"recluster": [], "fold": []}
+    for i, sec in enumerate(stream.feed_latencies):
+        kinds["recluster" if i in stream.recluster_emissions else "fold"].append(sec * 1e3)
+    return {
+        kind: {"n": len(ms), "median_ms": statistics.median(ms), "max_ms": max(ms)}
+        if ms
+        else {"n": 0}
+        for kind, ms in kinds.items()
+    }
+
+
+def stream_clip(torch, pipe, clip, block, **kwargs):
+    """Stream ``clip`` through ``pipe`` in ``block``-sample blocks. Returns
+    (the stream, each feed's emission or None, the flush, flush ms, native
+    linkages run in the flush, (real, padded) chunks and host wall ms of
+    each run_chunks range: its enqueue, the card's work and the fetch)."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.streaming import (
+        StreamingDiarizer,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import native_bindings
+
+    ranges = []
+    run_chunks = pipe.run_chunks
+
+    def recorded(waveform, num_chunks, *args):
+        t0 = time.perf_counter()
+        out = run_chunks(waveform, num_chunks, *args)
+        ranges.append((num_chunks, pipe.chunk_lattice(num_chunks), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    pipe.run_chunks = recorded
+    try:
+        stream = StreamingDiarizer(pipe, **kwargs)
+        outs = [stream.feed(clip[i : i + block]) for i in range(0, len(clip), block)]
+        calls = native_bindings.linkage_calls
+        t0 = time.perf_counter()
+        final = stream.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del pipe.run_chunks
+    return stream, outs, final, flush_ms, native_bindings.linkage_calls - calls, ranges
+
+
+def range_stats(ranges):
+    """Median and max host ms of the stream's run_chunks ranges."""
+    ms = [t for _, _, t in ranges]
+    return {"n": len(ms), "median_ms": statistics.median(ms), "max_ms": max(ms)}
+
+
+def train_rows(pipe, embeddings) -> int:
+    """Rows the host clusterer's linkage takes from ``embeddings``."""
+    rows = int((~np.isnan(embeddings).any(axis=-1)).sum())
+    cap = getattr(pipe.clusterer, "max_num_embeddings", None)
+    return rows if cap is None else min(rows, int(cap))
+
+
+def streaming_phase(torch, counters):
+    """pipelines/streaming.py on the card. (a) Full width, the default
+    config on the host route (device_clustering=False): the 59 s clip in
+    0.5 s blocks, emit_every 8, recluster_every 4; its flush against the
+    same pipeline's offline request (equal strings) and a default
+    device-route pipeline's (equal partition); the stream's scores and
+    embeddings against one run_chunks over the whole clip; native linkage
+    in the flush; then a 5-minute clip in 1 s blocks under the doubling
+    schedule. (b) small5s with the gate checkpoint in float32 (TF32 off)
+    on a silence-gapped clip: every emission on the card against the same
+    stream on the CPU, the frozen prefix engaged. (c) The spectral
+    clusterer: a full-width request (no linkage launch) and small5s card
+    against CPU. (d) The native linkage against scipy on the card's host.
+    Returns each kernel's launches over the phase's streams and requests."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import load_checkpoint
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+
+    totals = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] += n
+        return launches
+
+    def expected(pipe, ranges):
+        per_range = sum(p * pipe.config.segmentation.num_speakers // pipe.emb_batch for _, p, _ in ranges)
+        return {name: per_range if n is None else 0 for name, (_, _, n) in counters.items()}
+
+    # (a) full width
+    pipe = SpeakerDiarizationPipeline(seed=0, device_clustering=False)
+    seg = pipe.config.segmentation
+    clip = synth_clip(59.0, seed=0, quantize=False)
+    offline, offline_ms = timed(torch, lambda: pipe(clip))
+    # the 32-chunk range's first call (cuDNN's plan choice), outside the stream
+    pipe.run_chunks(clip[: 7 * seg.step_size + seg.window_size], 8)
+    (stream, outs, final, flush_ms, flush_native, ranges), launched = counted(
+        torch, counters, lambda: stream_clip(torch, pipe, clip, 8000, emit_every=8, recluster_every=4)
+    )
+    add(launched)
+    check(launched == expected(pipe, ranges), f"stream: launches {launched}, ranges {ranges}")
+    check(str(final) == str(offline), "stream: the flush differs from the offline host-route request")
+    device_route = SpeakerDiarizationPipeline(seed=0)
+    (dev_ann, _), dev_launched = counted(torch, counters, lambda: timed(torch, lambda: device_route(clip)))
+    add(dev_launched)
+    check(dev_launched["linkage"] == 1, "stream: no linkage launch in the default pipeline's request (stage 3 on the card)")
+    check(
+        partition_of(final) == partition_of(dev_ann),
+        "stream: the flush is not partition-equivalent to the device-route request",
+    )
+    n_train = train_rows(pipe, stream._embeddings.view())
+    check(n_train >= 256, f"stream: {n_train} train rows, below the native backend's 256")
+    check(flush_native >= 1, "stream: the flush's recluster did not run the native linkage")
+    segs_w, bin_w, emb_w = pipe.run_chunks(clip, stream._done_chunks)
+    emb_s = stream._embeddings.view()
+    check(
+        np.array_equal(np.isnan(emb_s), np.isnan(emb_w)),
+        "stream: too-short rows differ from the whole clip's run_chunks",
+    )
+    finite = ~np.isnan(emb_w)
+    real = sum(n for n, _, _ in ranges)
+    padded = sum(p for _, p, _ in ranges)
+    emissions = sum(o is not None for o in outs)
+    full = {
+        "clip_s": len(clip) / seg.sample_rate,
+        "block_s": 0.5,
+        "emissions": emissions,
+        "reclusters": stream.recluster_emissions,
+        "feed": feed_stats(stream),
+        "flush_ms": flush_ms,
+        "offline_request_ms": offline_ms,
+        "ranges": len(ranges),
+        "run_chunks_ms": range_stats(ranges),
+        "padded_share": 1.0 - real / padded,
+        "launches": launched,
+        "max_abs_diff_vs_whole_run_chunks": {
+            "scores": float(np.abs(stream._segs.view() - segs_w).max()),
+            "binarized_frames_differing": int((stream._binarized.view() != bin_w).sum()),
+            "embeddings": float(np.abs(emb_s[finite] - emb_w[finite]).max()),
+        },
+        "train_rows": n_train,
+        "flush_native_linkages": flush_native,
+        "flush_equals_offline": True,
+        "partition_equals_device_route": True,
+        "turns": len(final.turns()),
+        "speakers": len(final.labels),
+    }
+    emit({"streaming": "full width, 59 s clip, host route", **full})
+
+    # where a range's time goes: one 8-chunk range (32 padded) against one
+    # run_chunks of the whole clip (109 in 128), host wall then profiled
+    range_clip = clip[: 7 * seg.step_size + seg.window_size]
+    sections = {
+        "range_8_of_32": lambda: pipe.run_chunks(range_clip, 8),
+        "whole_109_of_128": lambda: pipe.run_chunks(clip, stream._done_chunks),
+    }
+    walls = {name: [timed(torch, fn)[1] for _ in range(3)] for name, fn in sections.items()}
+    profiled = profile_sections(torch, sections, top=5)
+    emit(
+        {
+            "streaming": "one range against the whole clip's run_chunks",
+            **{
+                name: {
+                    "wall_ms": walls[name],
+                    "device_kernel_ms": profiled[name][1],
+                    "kernels": profiled[name][2],
+                    "top": profiled[name][0],
+                }
+                for name in sections
+            },
+        }
+    )
+
+    long_clip = synth_clip(300.0, seed=1, quantize=False)
+    long_offline, long_offline_ms = timed(torch, lambda: pipe(long_clip))
+    (lstream, louts, lfinal, lflush_ms, lnative, lranges), launched = counted(
+        torch,
+        counters,
+        lambda: stream_clip(torch, pipe, long_clip, 16000, emit_every=8, recluster_schedule="doubling"),
+    )
+    add(launched)
+    check(launched == expected(pipe, lranges), f"long stream: launches {launched}")
+    check(str(lfinal) == str(long_offline), "long stream: the flush differs from the offline request")
+    emit(
+        {
+            "streaming": "full width, 300 s clip, 1 s blocks, doubling schedule",
+            "emissions": sum(o is not None for o in louts),
+            "reclusters": lstream.recluster_emissions,
+            "feed": feed_stats(lstream),
+            "flush_ms": lflush_ms,
+            "offline_request_ms": long_offline_ms,
+            "run_chunks_ms": range_stats(lranges),
+            "padded_share": 1.0 - sum(n for n, _, _ in lranges) / sum(p for _, p, _ in lranges),
+            "train_rows": train_rows(pipe, lstream._embeddings.view()),
+            "flush_native_linkages": lnative,
+            "flush_equals_offline": True,
+        }
+    )
+
+    # (b) small5s parity stream, card against CPU
+    params = load_checkpoint(os.path.join(HERE, "tests", "goldens", "gate_ckpt"))
+    gapped = gapped_clip(30.0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        small = small5s_pipeline(device, float32=True, params=params, device_clustering=False)
+        if device == "cuda":
+            run, launched = counted(
+                torch, counters, lambda: stream_clip(torch, small, gapped, len(gapped) // 14 + 1, emit_every=8)
+            )
+            add(launched)
+            small_launches = launched
+            offline_small = str(small(gapped))
+        else:
+            run = stream_clip(torch, small, gapped, len(gapped) // 14 + 1, emit_every=8)
+        runs[device] = run
+    card, cpu = runs["cuda"], runs["cpu"]
+    outs_card, outs_cpu = card[1] + [card[2]], cpu[1] + [cpu[2]]
+    check(
+        [o is None for o in outs_card] == [o is None for o in outs_cpu],
+        "small5s stream: emissions at different feeds on the card and the CPU",
+    )
+    check(
+        all(
+            a is None or same_turns(turns_of(a), turns_of(b))
+            for a, b in zip(outs_card, outs_cpu)
+        ),
+        "small5s stream: an emission differs between the card and the CPU",
+    )
+    check(card[0]._seam_cidx > 0, "small5s stream: the frozen prefix did not engage on the card")
+    check(str(card[2]) == offline_small, "small5s stream: the flush differs from the card's offline request")
+    check(small_launches["asp_pool_float32"] > 0, "small5s stream: no float32 ASP launch")
+    emit(
+        {
+            "streaming": "small5s, gate checkpoint, float32 (TF32 off), 30 s silence-gapped clip",
+            "emissions": sum(o is not None for o in outs_card[:-1]),
+            "emissions_equal_cpu": True,
+            "seam_cidx": int(card[0]._seam_cidx),
+            "frozen_turns": len(card[0]._frozen_turns),
+            "flush_equals_offline": True,
+            "asp_pool_float32_launches": small_launches["asp_pool_float32"],
+            "feed": feed_stats(card[0]),
+            "turns": len(card[2].turns()),
+            "speakers": len(card[2].labels),
+        }
+    )
+
+    # (c) the spectral clusterer
+    spectral = SpeakerDiarizationPipeline(seed=0, clusterer="spectral")
+    check(spectral._device_clu_key() is None, "spectral: the device route is on")
+    (ann, wall_ms), launched = counted(torch, counters, lambda: timed(torch, lambda: spectral(clip)))
+    add(launched)
+    check(launched["linkage"] == 0, "spectral: a linkage launch")
+    check(turns_well_formed(ann, len(clip) / seg.sample_rate), "spectral: malformed turns")
+    spectral_host_s = spectral.timings.clustering
+    small_turns = {
+        device: turns_of(
+            small5s_pipeline(device, float32=True, params=params, clusterer="spectral")(gapped)
+        )
+        for device in ("cuda", "cpu")
+    }
+    check(
+        same_turns(small_turns["cuda"], small_turns["cpu"]),
+        "spectral: small5s turns differ between the card and the CPU",
+    )
+    emit(
+        {
+            "streaming": "spectral clusterer",
+            "full_width_request_ms": wall_ms,
+            "host_clustering_and_decode_s": spectral_host_s,
+            "launches": launched,
+            "turns": len(ann.turns()),
+            "small5s_turns": len(small_turns["cuda"]),
+            "small5s_turns_equal_cpu": True,
+        }
+    )
+
+    # (d) the native linkage on the card's host
+    emb = emb_w.reshape(-1, emb_w.shape[-1])
+    emb = emb[~np.isnan(emb).any(axis=1)]
+    native_vs_scipy(
+        ("main_path", emb / np.linalg.norm(emb, axis=1, keepdims=True)),
+        pipe.config.clustering.threshold,
+    )
+    return totals
+
+
+def cpu_model() -> dict:
+    """The host CPU as /proc/cpuinfo gives it (a virtualized host may report
+    its model name as "unknown"; vendor, family, model and stepping still
+    name the part), with the ISA level PyTorch's CPU kernels use."""
+    import torch
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip().lower()
+                if not line.strip():
+                    break  # the first processor's block is enough
+                fields.setdefault(key, value.strip())
+    except OSError:
+        pass
+    flags = set(fields.get("flags", "").split())
+    return {
+        **{k: fields.get(k, "not reported") for k in ("model name", "vendor_id", "cpu family", "model", "stepping")},
+        "isa": sorted(flags & {"avx2", "avx512f", "avx512_bf16", "amx_tile", "sve"}),
+        "torch_cpu_capability": torch.backends.cpu.get_cpu_capability(),
+    }
+
+
+def native_vs_scipy(main_path, threshold: float):
+    """runtime/native_bindings.py ``linkage_centroid`` against scipy's
+    centroid linkage, on the main path's embeddings and on seeded unit
+    blobs of 1000 and 2000 rows: merge pairs and sizes equal, distances
+    within rtol 1e-8; host ms of each (median of three). Rows that are
+    exact copies of each other (a chunk's speakers with equal masks get
+    equal embeddings) merge at distance 0 in an order neither library
+    defines, so where the input has copies the merges are compared on its
+    distinct rows, and on all rows the merge distances and the flat
+    clusters at ``threshold``."""
+    from scipy.cluster.hierarchy import linkage
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering import ahc
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import native_bindings
+
+    cases = [main_path]
+    for n in (1000, 2000):
+        rng = np.random.default_rng(n)
+        centres = rng.normal(size=(8, 192))
+        X = centres[rng.integers(0, 8, size=n)] + 0.5 * rng.normal(size=(n, 192))
+        cases.append((f"blobs_{n}", X / np.linalg.norm(X, axis=1, keepdims=True)))
+    check(native_bindings.available(), "native: the library is unavailable")
+    results = {}
+    for name, X in cases:
+        times = {"native": [], "scipy": []}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            Zn = native_bindings.linkage_centroid(X)
+            times["native"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            Zs = linkage(X, method="centroid", metric="euclidean")
+            times["scipy"].append((time.perf_counter() - t0) * 1e3)
+        check(np.allclose(Zn[:, 2], Zs[:, 2], rtol=1e-8, atol=0), f"native: {name}: distances differ")
+        check(
+            partitions_equal(
+                ahc.fcluster_distance(Zn, threshold), ahc.fcluster_distance(Zs, threshold)
+            ),
+            f"native: {name}: flat clusters differ from scipy's",
+        )
+        distinct = np.unique(X, axis=0)
+        if len(distinct) < len(X):
+            Zn, Zs = native_bindings.linkage_centroid(distinct), linkage(distinct, method="centroid")
+            check(np.allclose(Zn[:, 2], Zs[:, 2], rtol=1e-8, atol=0), f"native: {name}: distances differ")
+        check(
+            np.array_equal(Zn[:, :2], Zs[:, :2]) and np.array_equal(Zn[:, 3], Zs[:, 3]),
+            f"native: {name}: merges differ from scipy's",
+        )
+        results[name] = {
+            "n": int(X.shape[0]),
+            "distinct_rows": int(len(distinct)),
+            "d": int(X.shape[1]),
+            "native_ms": statistics.median(times["native"]),
+            "scipy_ms": statistics.median(times["scipy"]),
+        }
+    emit(
+        {
+            "native_linkage": "linkage_centroid vs scipy centroid linkage: equal merges",
+            "host_cpu": cpu_model(),
+            "host_cpus": os.cpu_count(),
+            "nvidia_smi": nvidia_smi_line(),
+            "cases": results,
+        }
+    )
+
+
 def main() -> int:
     import torch
 
@@ -2052,8 +2493,11 @@ def main() -> int:
         pack_cuda,
     )
 
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import native_bindings
+
     smi = nvidia_smi_line()
     build_s = _cuda_lib.build()
+    native_build_s = native_bindings.build()
     ptxas = {
         name: [
             ln.strip()
@@ -2069,6 +2513,7 @@ def main() -> int:
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "build_s": build_s,
+            "native_build_s": native_build_s,
             "ptxas": ptxas,
         }
     )
@@ -2091,7 +2536,7 @@ def main() -> int:
     # the float32 path: the float32 kernel, counted from 0 over its requests
     totals["asp_pool_float32"] = float32_requests_phase(torch, counters)["asp_pool_float32"]
     # the other paths: every kernel's launches there added
-    for phase in (entry_points_phase, layouts_phase, ingest_phase):
+    for phase in (entry_points_phase, layouts_phase, ingest_phase, streaming_phase):
         for name, n in phase(torch, counters).items():
             totals[name] += n
     sinc_conv_phase(torch)

@@ -9,7 +9,8 @@ The reference needs 483 lines of heap machinery because it merges one pair at
 a time over scalar loops. At diarization scale (N = a few hundred to a few
 thousand embeddings for hour-long audio) scipy's linkage, or the simple
 O(N^2)-per-merge global argmin over a dense distance matrix kept here as the
-dependency-free oracle, is fast enough and trivially verifiable.
+dependency-free oracle, is fast enough and trivially verifiable; a native
+C++ backend (runtime/native) takes large N.
 
 Semantics notes:
   - "centroid" linkage can produce dendrogram inversions; fcluster's
@@ -20,12 +21,15 @@ Semantics notes:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
 def linkage(
     embeddings: np.ndarray,
     method: str = "centroid",
+    use_native: Optional[bool] = None,
     backend: str = "auto",
 ) -> np.ndarray:
     """(N, d) -> (N-1, 4) linkage matrix [id_a, id_b, dist, size].
@@ -34,16 +38,38 @@ def linkage(
     scipy.cluster.hierarchy.linkage(method="centroid"|"single"|"average"|
     "complete"|"ward", metric="euclidean").
 
-    backend: "auto" (scipy, then numpy), "scipy", or "numpy" (the in-tree
+    backend: "auto" (centroid at N >= 256: the native C++ fast_linkage, with
+    scipy's merge order exactly; then scipy, then numpy), "scipy", "native"
+    (C++ runtime/native, centroid only), or "numpy" (the in-tree
     global-argmin implementation, kept as the dependency-free oracle).
+    ``use_native`` is the legacy switch: True -> "native", False -> "numpy".
     """
     X = np.asarray(embeddings, dtype=np.float64)
     n = X.shape[0]
     if n < 2:
         return np.zeros((0, 4))
 
-    if backend not in ("auto", "scipy", "numpy"):
+    if use_native is not None:
+        backend = "native" if use_native else "numpy"
+    if backend not in ("auto", "scipy", "native", "numpy"):
         raise ValueError(f"unknown linkage backend: {backend!r}")
+    if backend == "native" and method != "centroid":
+        raise ValueError(
+            f"backend='native' supports only method='centroid', got {method!r}"
+        )
+    # native first for centroid at the sizes where it beats scipy (below
+    # ~256 the ctypes and set-up overhead dominates); an explicit
+    # backend="native" always runs native
+    if method == "centroid" and (
+        backend == "native" or (backend == "auto" and n >= 256)
+    ):
+        from ..runtime import native_bindings
+
+        Z = native_bindings.linkage_centroid(X)
+        if Z is not None:
+            return Z
+        if backend == "native":
+            raise RuntimeError("native linkage backend unavailable")
     if backend in ("auto", "scipy"):
         try:
             from scipy.cluster.hierarchy import linkage as scipy_linkage

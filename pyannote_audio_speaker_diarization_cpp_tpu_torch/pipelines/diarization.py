@@ -269,6 +269,10 @@ class SpeakerDiarizationPipeline:
     clusterer. False always takes the host clusterer; True raises on an
     incompatible clusterer.
 
+    ``clusterer``: "ahc" (clustering/base.py, the default), "spectral"
+    (clustering/spectral.py; stage 3 then always takes the host route), or
+    any object with the same call signature.
+
     ``ecapa_layout``: how the ECAPA trunk holds its activations in every
     stage-2 entry point — "nch" (the default, as in the JAX package), "nhc"
     or "gemm" (models/ecapa.py); same weights, same state dict.
@@ -327,9 +331,14 @@ class SpeakerDiarizationPipeline:
         self.emb_batch = emb_batch or config.embedding.batch_size
         self.precision = precision
         if isinstance(clusterer, str):
-            if clusterer != "ahc":
+            if clusterer == "ahc":
+                clusterer = AgglomerativeClustering(config.clustering)
+            elif clusterer == "spectral":
+                from ..clustering.spectral import SpectralClustering
+
+                clusterer = SpectralClustering()
+            else:
                 raise ValueError(f"unknown clusterer: {clusterer!r}")
-            clusterer = AgglomerativeClustering(config.clustering)
         self.clusterer = clusterer
         self.k_max = k_max
         self.device_cluster_rows = device_cluster_rows

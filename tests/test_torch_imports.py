@@ -76,7 +76,9 @@ print("ok", len(ann.turns()))
 
 
 def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # two torch threads in the child (tests/_torch_threads.py): the suite
+    # runs several xdist workers on a few cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN],
         cwd=REPO,
@@ -93,10 +95,13 @@ def test_port_imports_and_runs_without_jax():
 # the scan above reads and import where JAX cannot
 ENTRY_POINT_MODULES = (
     "cli",
+    "clustering.spectral",
     "metrics.der",
     "models.ingest",
     "pipelines.embedding",
     "pipelines.segmentation",
+    "pipelines.streaming",
+    "runtime.native_bindings",
     "utils.debug_dump",
     "utils.flops",
     "utils.instrumented",
@@ -123,6 +128,9 @@ from {PORT}.models.pyannet import PyanNetConfig, pyannet_num_frames
 from {PORT}.pipelines.diarization import SpeakerDiarizationPipeline
 from {PORT}.pipelines.embedding import EmbeddingPipeline
 from {PORT}.pipelines.segmentation import SegmentationPipeline
+from {PORT}.pipelines.streaming import StreamingDiarizer
+from {PORT}.runtime import native_bindings
+from {PORT}.clustering import ahc
 from {PORT}.utils.debug_dump import DumpSession
 from {PORT}.utils.instrumented import run_with_dumps
 from {PORT}.utils.timing import StageTimer
@@ -145,6 +153,15 @@ a, b = pipe.map([wave, wave[:30000]])
 assert str(a) == str(pipe(wave))
 assert str(run_with_dumps(pipe, wave, DumpSession(write_text=False))) == str(a)
 assert der(a, a) == 0.0
+stream = StreamingDiarizer(pipe, emit_every=2)
+for block in np.array_split(wave, 4):
+    stream.feed(block)
+assert str(stream.flush()) == str(SpeakerDiarizationPipeline(cfg, device_clustering=False, **small)(wave))
+spectral = SpeakerDiarizationPipeline(cfg, clusterer="spectral", **small)
+assert spectral._device_clu_key() is None and spectral(wave) is not None
+calls = native_bindings.linkage_calls
+ahc.linkage(np.random.default_rng(0).normal(size=(300, 8)))
+assert native_bindings.linkage_calls == calls + 1
 seg = SegmentationPipeline(cfg, pyannet_cfg=small["pyannet_cfg"], device="cpu")(wave)
 emb = EmbeddingPipeline(cfg, ecapa_cfg=small["ecapa_cfg"], device="cpu")(wave[None, :16000])
 ckpt = tempfile.mkdtemp()
@@ -169,7 +186,7 @@ def test_entry_points_import_and_run_without_jax():
     scanned = {os.path.relpath(path, os.path.join(REPO, PORT)) for path in _sources()}
     for name in ENTRY_POINT_MODULES:
         assert name.replace(".", os.sep) + ".py" in scanned, name
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_ENTRY_POINTS],
         cwd=REPO,
@@ -180,3 +197,18 @@ def test_entry_points_import_and_run_without_jax():
     )
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.startswith("ok")
+
+
+def test_runtime_is_scanned_and_holds_no_built_library():
+    runtime = os.path.join(REPO, PORT, "runtime")
+    scanned = {os.path.relpath(path, runtime) for path in _sources()}
+    assert {"__init__.py", "native_bindings.py"} <= scanned
+    # the library builds into the package's _build/, never beside its source
+    assert sorted(os.listdir(os.path.join(runtime, "native"))) == ["sdtpu_native.cc"]
+    tracked = subprocess.run(
+        ["git", "ls-files", os.path.join(PORT, "runtime")],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+    ).stdout.split()
+    assert not [path for path in tracked if path.endswith((".so", ".o", ".a"))], tracked

@@ -65,9 +65,18 @@ def port_config(cfg) -> tcfg.DiarizationConfig:
     return tcfg.DiarizationConfig(**fields)
 
 
-def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False, ecapa_layout="nch"):
+def build_pair(
+    jax_cfg,
+    batch,
+    params=None,
+    seed=0,
+    device_clustering=False,
+    ecapa_layout="nch",
+    clusterer="ahc",
+):
     """(jax pipeline, port pipeline) on the same weights, conservative mode,
-    both with the same ``device_clustering`` and ``ecapa_layout``."""
+    both with the same ``device_clustering``, ``ecapa_layout`` and
+    ``clusterer``."""
     jax_cfg = dataclasses.replace(jax_cfg, compute_dtype="float32", transfer_dtype="float32")
     jp = JaxPipeline(
         jax_cfg,
@@ -80,6 +89,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False, eca
         precision=jax.lax.Precision.HIGHEST,
         device_clustering=device_clustering,
         ecapa_layout=ecapa_layout,
+        clusterer=clusterer,
     )
     tp = SpeakerDiarizationPipeline(
         port_config(jax_cfg),
@@ -92,6 +102,7 @@ def build_pair(jax_cfg, batch, params=None, seed=0, device_clustering=False, eca
         device="cpu",
         device_clustering=device_clustering,
         ecapa_layout=ecapa_layout,
+        clusterer=clusterer,
     )
     return jp, tp
 
