@@ -102,12 +102,33 @@ Phases, each a JSON line on stdout:
      width (no linkage launch) and small5s card against CPU; the native
      linkage against scipy at the main path's N, 1000 and 2000 (host ms,
      with the host's CPU model);
- 12. sinc_conv: the SincNet conv's polyphase and strided forms on one
+ 12. longform: parallel/longform.py at full width on the synthetic clip
+     extended to 600 s (1191 chunks): LongFormDiarizer(num_shards=4)
+     against the single-shot request, both with stage 3 on the device
+     (merge loop at T = 1024, the fused stage 3 engaged: no host clusterer
+     call), in the parity mode (turns equal, embeddings at rtol 1e-3 /
+     atol 1e-4) and at the defaults (embeddings within abs 0.02, turn
+     equality printed), a default run on the first 120 s under
+     torch.profiler (busy ms, idle share, top kernels); the parity mode
+     card against CPU on 20 s; then
+     3600 s (7191 chunks) with 8 shards and the window of 3 against the
+     single-shot request (host route): walls, audio-s/s, peak device
+     memory, launches, T. Every long-form run after the first runs under
+     sync debug mode "error" but for its fetches, which are counted;
+ 13. multirank: the pipeline's mesh= at full width on the 59 s clip: one
+     NCCL rank on the card equal to the mesh-less pipeline (strings,
+     embeddings, launches), all_gather_embeddings under sync debug mode
+     "error" and timed; then two gloo ranks spawned on cuda:0 (NCCL
+     refuses two ranks on one card) running parallel/dryrun.py's three
+     cases, in the parity mode and at the defaults, each rank launching
+     half of a request's stage-2 batches; a failed rank fails the run;
+ 14. sinc_conv: the SincNet conv's polyphase and strided forms on one
      (32, 80 000) batch, TF32 off and on: device ms, the largest
      difference between the forms and from the CPU, the bound;
- 13. the kernel summary line (launches: float32 ASP's from phase 7, the
-     others' from phase 6, each plus phases 8-11's), the nvidia-smi line,
-     and last {"ok": true, "device": {...}}.
+ 15. each phase's host wall seconds; the kernel summary line (launches:
+     float32 ASP's from phase 7, the others' from phase 6, each plus
+     phases 8-13's, the spawned ranks' included), the nvidia-smi line, and
+     last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
 line. It imports nothing of JAX, and fails without a CUDA device or
@@ -1114,6 +1135,16 @@ def union_length(spans) -> float:
     return total
 
 
+def by_kernel(device):
+    """Traced device events -> {name: [device ms, calls]}."""
+    by_name = {}
+    for e in device:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+        acc[1] += 1
+    return by_name
+
+
 def profile_request(torch, pipe, clip):
     """One more (uncounted) request under torch.profiler: device time by
     kernel, and the share of the request's wall time in which no device
@@ -1122,11 +1153,7 @@ def profile_request(torch, pipe, clip):
     (_, wall_ms), device = traced(torch, lambda: timed(torch, lambda: pipe(clip)))
     check(bool(device), "profile: no device activity was traced")
     busy_ms = union_length((e.time_range.start, e.time_range.end) for e in device) / 1e3
-    by_name = {}
-    for e in device:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += (e.time_range.end - e.time_range.start) / 1e3
-        acc[1] += 1
+    by_name = by_kernel(device)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     ours = {
         name[:60]: {"device_ms": ms, "calls": n}
@@ -2478,6 +2505,508 @@ def native_vs_scipy(main_path, threshold: float):
     )
 
 
+# ---------------------------------------------------------------------------
+# long-form and the data-parallel layer
+# ---------------------------------------------------------------------------
+
+
+class ClustererSpy:
+    """A pipeline's host clusterer with its calls counted."""
+
+    def __init__(self, real):
+        self.real, self.calls = real, 0
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.real(*args, **kwargs)
+
+
+def record_shards(pipe):
+    """Keep (chunks, embeddings, too_short) of every ``run_chunks_device``
+    call of ``pipe`` (long-form's shards), on the device. Returns the list."""
+    kept = []
+    launch = pipe.run_chunks_device
+
+    def recording(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        kept.append((args[1], out[3], out[4]))
+        return out
+
+    pipe.run_chunks_device = recording
+    return kept
+
+
+def record_requests(pipe):
+    """Keep the pending state of every ``_dispatch`` of ``pipe``. Returns the
+    list."""
+    kept = []
+    launch = pipe._dispatch
+
+    def recording(*args, **kwargs):
+        kept.append(launch(*args, **kwargs))
+        return kept[-1]
+
+    pipe._dispatch = recording
+    return kept
+
+
+def strict_longform(torch, lf, audio):
+    """``lf(audio)`` with sync debug mode "error" throughout, except in its
+    fetches (``lf._fetch``, the waits long-form makes by design, counted in
+    ``lf.host_waits``): anything else that waits for the card raises."""
+    fetch = lf._fetch
+
+    def lifted(*tensors):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fetch(*tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    lf._fetch = lifted
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return lf(audio)
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+        del lf._fetch
+
+
+def shard_embeddings(torch, kept, num_speakers):
+    """The real rows of recorded shards' embeddings and too-short flags,
+    concatenated in shard order (float32, on the CPU)."""
+    emb = torch.cat([e[: n * num_speakers].float() for n, e, _ in kept]).cpu()
+    too_short = torch.cat([t[: n * num_speakers] for n, _, t in kept]).cpu()
+    return emb, too_short
+
+
+def in_mode(launches, float32: bool):
+    """A request's launches at the defaults -> in the parity mode, where the
+    float32 ASP kernel takes the bf16 one's batches."""
+    if not float32:
+        return dict(launches)
+    return dict(launches, asp_pool=0, asp_pool_float32=launches["asp_pool"])
+
+
+def longform_launches(pipe, lf, num_samples, float32: bool, linkage: int):
+    """The launches each kernel must make in one long-form run: every
+    shard's stage-2 batches, on its own chunk lattice."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.longform import plan_shards
+
+    seg = pipe.config.segmentation
+    shards = plan_shards(
+        chunk_count(num_samples, seg.window_size, seg.step_size),
+        lf.num_shards,
+        seg.window_size,
+        seg.step_size,
+    )
+    padded = sum(pipe.chunk_lattice(s.num_chunks) for s in shards if s.num_chunks)
+    batches = padded * seg.num_speakers // pipe.emb_batch
+    launches = {"pack_frames": batches, "log_mel": batches, "asp_pool": batches}
+    return in_mode(dict(launches, asp_pool_float32=0, linkage=linkage), float32)
+
+
+def profile_longform(torch, lf, audio, top: int = 6):
+    """One strict long-form run under torch.profiler: wall, device busy ms,
+    the share of the wall with no device activity, device events, and the
+    top kernels by device time. The profiler slows the host, so the idle
+    share is an upper bound for unprofiled runs."""
+    (_, wall_ms), device = traced(torch, lambda: timed(torch, lambda: strict_longform(torch, lf, audio)))
+    check(bool(device), "profile: no device activity was traced")
+    busy_ms = union_length((e.time_range.start, e.time_range.end) for e in device) / 1e3
+    ranked = sorted(by_kernel(device).items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_events": len(device),
+        "top": [{"name": name[:90], "device_ms": ms, "calls": n} for name, (ms, n) in ranked],
+    }
+
+
+def longform_phase(torch, counters):
+    """parallel/longform.py at full width (default PyanNet and ECAPA-TDNN,
+    seeded weights) on bench.py's synthetic clip extended. (a) 600 s (1191
+    chunks): LongFormDiarizer(num_shards=4) against the single-shot request,
+    both with stage 3 on the device (the merge loop at T = 1024): in the
+    parity mode (float32, precision "highest") turns equal and embeddings
+    at rtol 1e-3 / atol 1e-4; at the defaults embeddings within abs 0.02,
+    turn equality printed; the fused stage 3 engaged (no host clusterer
+    call, one linkage launch); a default run on the first 120 s profiled.
+    (b) The parity mode card against CPU at
+    reduced length (20 s, 4 shards). (c) 3600 s (7191 chunks):
+    LongFormDiarizer(num_shards=8), window 3 (fused device stage 3) against
+    the single-shot request (host route), each run once, the first at
+    these shapes: walls, audio-s/s, peak device memory, launches,
+    merge-loop T. After a pipeline's first request every
+    dispatch runs under sync debug mode "error", and so does every
+    long-form run but its fetches, which are counted. Returns each kernel's
+    launches over the phase."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.clustering import device as devclu
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops.windows import chunk_count
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.longform import (
+        LongFormDiarizer,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+
+    totals = {name: 0 for name in counters}
+    t_phase = time.perf_counter()
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] += n
+        return launches
+
+    # the merge loop's size T, as device_cluster hands it to the kernel
+    merge_sizes = []
+    real_linkage = devclu._linkage_labels
+
+    def watched_linkage(embt, *args):
+        merge_sizes.append(int(embt.shape[0]))
+        return real_linkage(embt, *args)
+
+    devclu._linkage_labels = watched_linkage
+    try:
+        f32 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+        sr = DEFAULT_CONFIG.segmentation.sample_rate
+        S = DEFAULT_CONFIG.segmentation.num_speakers
+        clip = synth_clip(600.0, seed=0, quantize=False)
+        pipes = {}
+        for mode, cfg, precision in (("float32", f32, "highest"), ("default", DEFAULT_CONFIG, "default")):
+            pipe = SpeakerDiarizationPipeline(cfg, seed=0, precision=precision)
+            pipes[mode] = pipe
+            spy = pipe.clusterer = ClustererSpy(pipe.clusterer)
+            lf = LongFormDiarizer(pipe, num_shards=4)
+            # first requests at these shapes, outside the strict mode
+            _, first_single_ms = timed(torch, lambda: pipe(clip))
+            _, first_lf_ms = timed(torch, lambda: lf(clip))
+            strict_dispatch(torch, pipe)
+            requests, shards = record_requests(pipe), record_shards(pipe)
+            (single, single_ms), single_launched = counted(
+                torch, counters, lambda: timed(torch, lambda: pipe(clip))
+            )
+            add(single_launched)
+            want = in_mode(per_request_launches(pipe, clip, counters), mode == "float32")
+            check(
+                single_launched == want,
+                f"longform 600 s {mode}: single-shot launches {single_launched}, expected {want}",
+            )
+            check(requests[-1]["device_clu"] is not None, "longform 600 s: single shot not on the device route")
+            merge_sizes.clear()
+            spy.calls = 0
+            (longf, lf_ms), lf_launched = counted(
+                torch, counters, lambda: timed(torch, lambda: strict_longform(torch, lf, clip))
+            )
+            add(lf_launched)
+            want = longform_launches(pipe, lf, len(clip), mode == "float32", 1)
+            check(lf_launched == want, f"longform 600 s {mode}: launches {lf_launched}, expected {want}")
+            check(spy.calls == 0, f"longform 600 s {mode}: the host clusterer ran ({spy.calls})")
+            check(merge_sizes == [1024], f"longform 600 s {mode}: merge loop sizes {merge_sizes}")
+            pend = requests[-1]
+            rows = pend["num_chunks"] * S
+            emb_s, ts_s = pend["emb"][:rows].float().cpu(), pend["too_short"][:rows].cpu()
+            emb_l, ts_l = shard_embeddings(torch, shards[-4:], S)
+            check(torch.equal(ts_s, ts_l), f"longform 600 s {mode}: too_short differs")
+            valid = ~ts_s
+            err = float((emb_l[valid] - emb_s[valid]).abs().max())
+            equal_turns = same_turns(turns_of(longf), turns_of(single))
+            if mode == "float32":
+                check(
+                    within(torch, emb_l[valid], emb_s[valid], 1e-3, 1e-4),
+                    f"longform 600 s float32: embeddings differ (max abs {err})",
+                )
+                check(equal_turns, "longform 600 s float32: turns differ from the single-shot request's")
+            else:
+                check(err <= ENVELOPE, f"longform 600 s default: embeddings {err} apart (> {ENVELOPE})")
+            check(turns_well_formed(longf, len(clip) / sr), f"longform 600 s {mode}: turns malformed")
+            emit(
+                {
+                    "longform": f"600 s, 4 shards, {mode}",
+                    "phase_elapsed_s": time.perf_counter() - t_phase,
+                    "audio_s": len(clip) / sr,
+                    "chunks": pend["num_chunks"],
+                    "stage3_route": {"single_shot": "device", "longform": "device (fused)"},
+                    "merge_loop_T": merge_sizes,
+                    "first_wall_ms": {"single_shot": first_single_ms, "longform": first_lf_ms},
+                    "wall_ms": {"single_shot": single_ms, "longform": lf_ms},
+                    "audio_s_per_s": {
+                        "single_shot": len(clip) / sr / (single_ms / 1e3),
+                        "longform": len(clip) / sr / (lf_ms / 1e3),
+                    },
+                    "emb_max_abs_err_vs_single_shot": err,
+                    "embedding_rows": int(valid.sum()),
+                    "turns": len(single.turns()),
+                    "turns_equal": equal_turns,
+                    "strings_equal": str(longf) == str(single),
+                    "host_clusterer_calls": spy.calls,
+                    "longform_host_waits": lf.host_waits,
+                    "launches": {"single_shot": single_launched, "longform": lf_launched},
+                }
+            )
+        # profiled on the clip's first 120 s: a session that drops its
+        # lead-in runs again, and at 600 s each run traced ~74,000 kernels
+        profiled, launched = counted(
+            torch, counters, lambda: profile_longform(torch, lf, clip[: 120 * sr])
+        )
+        add(launched)
+        emit(
+            dict(
+                {"longform_profile": "120 s, 4 shards, default"},
+                phase_elapsed_s=time.perf_counter() - t_phase,
+                **profiled,
+            )
+        )
+
+        # (b) the parity mode, card against CPU, at reduced length
+        short = clip[: 20 * sr]
+        cpu = SpeakerDiarizationPipeline(f32, seed=0, precision="highest", device="cpu")
+        card = pipes["float32"]
+        kept = {"cuda": record_shards(card), "cpu": record_shards(cpu)}
+        (card_ann, card_ms), launched = counted(
+            torch, counters, lambda: timed(torch, lambda: LongFormDiarizer(card, num_shards=4)(short))
+        )
+        add(launched)
+        t0 = time.perf_counter()
+        cpu_ann = LongFormDiarizer(cpu, num_shards=4)(short)
+        cpu_s = time.perf_counter() - t0
+        (e_g, t_g), (e_c, t_c) = (shard_embeddings(torch, kept[d][-4:], S) for d in ("cuda", "cpu"))
+        check(torch.equal(t_g, t_c), "longform card vs cpu: too_short differs")
+        valid = ~t_c
+        err = float((e_g[valid] - e_c[valid]).abs().max())
+        check(
+            within(torch, e_g[valid], e_c[valid], 1e-3, 1e-4),
+            f"longform card vs cpu: embeddings differ (max abs {err})",
+        )
+        check(same_turns(turns_of(card_ann), turns_of(cpu_ann)), "longform card vs cpu: turns differ")
+        emit(
+            {
+                "longform": "20 s, 4 shards, float32, cuda vs cpu",
+                "phase_elapsed_s": time.perf_counter() - t_phase,
+                "emb_max_abs_err": err,
+                "embedding_rows": int(valid.sum()),
+                "turns": len(cpu_ann.turns()),
+                "turns_equal": True,
+                "card_wall_ms": card_ms,
+                "cpu_wall_s": cpu_s,
+                "launches": launched,
+            }
+        )
+        del cpu, pipes["float32"], card
+
+        # (c) an hour: 8 shards, window 3, against the single-shot request
+        pipe = pipes["default"]
+        spy = pipe.clusterer
+        hour = synth_clip(3600.0, seed=0, quantize=False)
+        lf = LongFormDiarizer(pipe, num_shards=8)
+        merge_sizes.clear()
+        spy.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        (longf, lf_ms), lf_launched = counted(
+            torch, counters, lambda: timed(torch, lambda: strict_longform(torch, lf, hour))
+        )
+        add(lf_launched)
+        lf_peak = torch.cuda.max_memory_allocated()
+        want = longform_launches(pipe, lf, len(hour), False, 1)
+        check(lf_launched == want, f"longform 3600 s: launches {lf_launched}, expected {want}")
+        check(spy.calls == 0 and merge_sizes == [1024], f"longform 3600 s: host clusterer {spy.calls}, merge sizes {merge_sizes}")
+        check(turns_well_formed(longf, len(hour) / sr), "longform 3600 s: turns malformed")
+        torch.cuda.reset_peak_memory_stats()
+        (single, single_ms), single_launched = counted(
+            torch, counters, lambda: timed(torch, lambda: pipe(hour))
+        )
+        add(single_launched)
+        single_peak = torch.cuda.max_memory_allocated()
+        check(
+            single_launched == dict(per_request_launches(pipe, hour, counters), linkage=0),
+            f"longform 3600 s: single-shot launches {single_launched}",
+        )
+        check(spy.calls == 1, "longform 3600 s: the single-shot request did not take the host route")
+        check(turns_well_formed(single, len(hour) / sr), "longform 3600 s: single-shot turns malformed")
+        hour_s = len(hour) / sr
+        emit(
+            {
+                "longform": "3600 s, 8 shards, window 3, default",
+                "phase_elapsed_s": time.perf_counter() - t_phase,
+                "audio_s": hour_s,
+                "chunks": chunk_count(len(hour), pipe.config.segmentation.window_size, pipe.config.segmentation.step_size),
+                "stage3_route": {"single_shot": "host", "longform": "device (fused)"},
+                "merge_loop_T": merge_sizes,
+                "wall_ms": {"longform": lf_ms, "single_shot": single_ms},
+                "audio_s_per_s": {"longform": hour_s / (lf_ms / 1e3), "single_shot": hour_s / (single_ms / 1e3)},
+                "peak_device_gib": {"longform": lf_peak / 2**30, "single_shot": single_peak / 2**30},
+                "longform_host_waits": lf.host_waits,
+                "turns": {"longform": len(longf.turns()), "single_shot": len(single.turns())},
+                "turns_equal": same_turns(turns_of(longf), turns_of(single)),
+                "launches": {"longform": lf_launched, "single_shot": single_launched},
+            }
+        )
+    finally:
+        devclu._linkage_labels = real_linkage
+    return totals
+
+
+def multirank_phase(torch, counters):
+    """The data-parallel layer (parallel/mesh.py, parallel/sharding.py,
+    the pipeline's ``mesh=``) at full width on the 59 s clip. (a) One NCCL
+    rank on the card: the pipeline on the mesh equals the mesh-less one
+    (strings, embeddings) with the same launches, every dispatch after its
+    first under sync debug mode "error"; ``all_gather_embeddings`` of the
+    request's embeddings under "error", and its time. (b) Two gloo ranks
+    sharing cuda:0 (NCCL refuses two ranks on one card), spawned: the dry
+    run's three cases (parallel/dryrun.py) on the mesh against one rank, in
+    the parity mode (turns equal, embeddings at rtol 1e-3 / atol 1e-4) and
+    at the defaults (embeddings within abs 0.02, turn equality printed);
+    each rank runs half of the request's stage-2 batches on the mesh. Both
+    ranks load one checkpoint written by ``save_checkpoint``. A rank that
+    fails or times out fails the phase. Returns each kernel's launches over
+    the phase, both ranks' included."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
+        params_to_jax,
+        save_checkpoint,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import _cuda_lib
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.mesh import make_mesh
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.sharding import (
+        all_gather_embeddings,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import native_bindings
+
+    totals = {name: 0 for name in counters}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] += n
+        return launches
+
+    # the ranks load what the parent built (no-ops when main built them):
+    # two ranks would race nvcc and g++ into the same _build/
+    _cuda_lib.build()
+    native_bindings.build()
+    clip = synth_clip(59.0, seed=0, quantize=False)
+
+    # (a) world size 1, NCCL
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}", world_size=1, rank=0
+    )
+    try:
+        mesh = make_mesh()
+        check(mesh.backend == "nccl" and mesh.device.type == "cuda", f"mesh {mesh}")
+        single = SpeakerDiarizationPipeline(seed=0)
+        sharded = SpeakerDiarizationPipeline(seed=0, mesh=mesh)
+        want = single(clip)
+        sharded(clip)  # the first request: NCCL makes its communicator
+        strict_dispatch(torch, sharded)
+        strict_dispatch(torch, single)
+        reqs = {"single": record_requests(single), "mesh": record_requests(sharded)}
+        (got, mesh_ms), launched = counted(torch, counters, lambda: timed(torch, lambda: sharded(clip)))
+        add(launched)
+        (again, single_ms), _ = counted(torch, counters, lambda: timed(torch, lambda: single(clip)))
+        check(str(got) == str(want) == str(again), "multirank nccl: the mesh's turns differ")
+        expected = per_request_launches(sharded, clip, counters)
+        check(launched == expected, f"multirank nccl: launches {launched}, expected {expected}")
+        per_rank = expected["pack_frames"] // 2  # a rank's block of 2
+        emb_m, emb_s = reqs["mesh"][-1]["emb"], reqs["single"][-1]["emb"]
+        check(torch.equal(emb_m, emb_s), "multirank nccl: embeddings differ from the mesh-less run")
+        counts = [emb_m.shape[0]]
+        all_gather_embeddings(emb_m, mesh, counts)  # warm
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gathered = all_gather_embeddings(emb_m, mesh, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+        check(torch.equal(gathered, emb_m), "multirank nccl: the gather changed the embeddings")
+        gather_ms = time_ms(torch, lambda: all_gather_embeddings(emb_m, mesh, counts))
+        feats = torch.zeros((128, 60, 293), device=mesh.device)
+        feats_ms = time_ms(torch, lambda: all_gather_embeddings(feats, mesh, [128]))
+        emit(
+            {
+                "multirank": "world 1, nccl, cuda:0",
+                "turns": len(want.turns()),
+                "strings_equal": True,
+                "embeddings_equal": True,
+                "wall_ms": {"mesh": mesh_ms, "meshless": single_ms},
+                "launches": launched,
+                "all_gather_ms": {
+                    f"embeddings {tuple(emb_m.shape)} {emb_m.dtype}": gather_ms,
+                    "sincnet features (128, 60, 293) float32": feats_ms,
+                },
+                "gather_sync_debug": "error",
+            }
+        )
+        del single, sharded
+    finally:
+        dist.destroy_process_group()
+
+    # (b) world size 2, gloo, both ranks on cuda:0
+    f32 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    tmp = tempfile.mkdtemp()
+    try:
+        source = SpeakerDiarizationPipeline(f32, seed=0, precision="highest")
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, params_to_jax(source.segmentation_model, source.embedding_model))
+        del source
+        for mode, kwargs in (
+            ("float32", {"config": f32, "precision": "highest"}),
+            ("default", {"config": DEFAULT_CONFIG}),
+        ):
+            t0 = time.perf_counter()
+            reports = dryrun.dryrun_multichip(
+                2,
+                kwargs,
+                clip,
+                params=ckpt,
+                device="cuda",
+                share_card=True,
+                require_equal=mode == "float32",
+                timeout=600,
+            )
+            wall_s = time.perf_counter() - t0
+            for r in reports:
+                add(r["launches"])
+                check(r["too_short_equal"], f"multirank gloo {mode}: too_short differs")
+                if mode == "float32":
+                    check(r["emb_within"], f"multirank gloo float32: embeddings differ ({r['emb_max_abs_err']})")
+                else:
+                    check(
+                        r["emb_max_abs_err"] <= ENVELOPE,
+                        f"multirank gloo default: embeddings {r['emb_max_abs_err']} apart",
+                    )
+                req = r["mesh_request_launches"]
+                check(
+                    req["pack_frames"] == per_rank and req["linkage"] == 1,
+                    f"multirank gloo {mode}: rank {r['rank']} launched {req} in one mesh request",
+                )
+            emit(
+                {
+                    "multirank": f"world 2, gloo, both ranks on cuda:0, {mode}",
+                    "wall_s": wall_s,
+                    "ranks": reports,
+                }
+            )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2517,12 +3046,21 @@ def main() -> int:
             "ptxas": ptxas,
         }
     )
-    kernels = kernel_phase(torch)
-    clustering = clustering_phase(torch)
+    # each phase's host wall seconds, printed before the summary
+    phase_s = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(torch, *args)
+        phase_s[phase.__name__] = time.perf_counter() - t0
+        return out
+
+    kernels = run(kernel_phase)
+    clustering = run(clustering_phase)
     # the linkage kernel at the main path's merge-loop size (T = 384)
     kernels["linkage"] = clustering["blobs_T384_chunks128"]
-    parity_phase(torch)
-    default_numerics_phase(torch)
+    run(parity_phase)
+    run(default_numerics_phase)
     counters = {
         "pack_frames": (pack_cuda.pack_frames, "launches", None),
         "log_mel": (frontend_cuda.log_mel_spectrogram, "launches", None),
@@ -2532,14 +3070,22 @@ def main() -> int:
         # the whole merge loop of stage 3: one launch a request
         "linkage": (linkage_cuda.linkage_labels, "launches", 1),
     }
-    totals, expected = main_path_phase(torch, counters)
+    totals, expected = run(main_path_phase, counters)
     # the float32 path: the float32 kernel, counted from 0 over its requests
-    totals["asp_pool_float32"] = float32_requests_phase(torch, counters)["asp_pool_float32"]
+    totals["asp_pool_float32"] = run(float32_requests_phase, counters)["asp_pool_float32"]
     # the other paths: every kernel's launches there added
-    for phase in (entry_points_phase, layouts_phase, ingest_phase, streaming_phase):
-        for name, n in phase(torch, counters).items():
+    for phase in (
+        entry_points_phase,
+        layouts_phase,
+        ingest_phase,
+        streaming_phase,
+        longform_phase,
+        multirank_phase,
+    ):
+        for name, n in run(phase, counters).items():
             totals[name] += n
-    sinc_conv_phase(torch)
+    run(sinc_conv_phase)
+    emit({"phase_wall_s": phase_s})
     pkg = "pyannote_audio_speaker_diarization_cpp_tpu_torch"
     tpu = "pyannote_audio_speaker_diarization_cpp_tpu"
     rows = [

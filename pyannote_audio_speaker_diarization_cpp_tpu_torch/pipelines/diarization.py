@@ -37,6 +37,10 @@ Besides ``__call__`` and ``map``: ``warmup``; ``run_chunks``,
 range, the building blocks of long-form and streaming and of the
 differential dumps, utils/instrumented.py); and ``finalize``, stage 3 on
 host arrays. ``dump=`` records the reference's named intermediates.
+``mesh=`` runs every entry point data-parallel over the ranks of a
+``torch.distributed`` group (parallel/mesh.py); ``count_parts`` and
+``post_cluster_from_hard`` are long-form's per-shard device steps
+(parallel/longform.py).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from ..ops import frontend as fe
 from ..ops import masks as mk
 from ..ops import windows as win
 from ..ops.aggregate import aggregate, plan_aggregation
+from ..parallel.mesh import batch_counts, batch_spec, replicated
 from . import reconstruct as rec
 
 PRECISIONS = ("default", "highest")
@@ -147,6 +152,63 @@ def post_cluster(
     return aggregate(clustered, start_frames, num_frames, missing=0.0, skip_average=True)
 
 
+def membership_from_hard(hard: torch.Tensor, k_max: int) -> torch.Tensor:
+    """(n, S) cluster labels (negative: in no cluster) -> (n, S, k_max)
+    bool one-hot membership."""
+    clusters = torch.arange(k_max, device=hard.device)
+    return (hard[:, :, None] == clusters) & (hard >= 0)[:, :, None]
+
+
+def post_cluster_from_hard(
+    segs: torch.Tensor,
+    hard_all: torch.Tensor,
+    ofs: int,
+    start_frames: torch.Tensor,
+    num_frames: int,
+    k_max: int,
+) -> torch.Tensor:
+    """``post_cluster`` driven by a device-resident hard-label vector (the
+    long-form fused stage 3, parallel/longform.py): this range's padded
+    block of rows sits at ``ofs`` in ``hard_all``, and the membership is
+    derived on the device, so neither it nor the embeddings reach the
+    host."""
+    n, _, S = segs.shape
+    hard = hard_all[ofs : ofs + n * S].reshape(n, S)
+    return post_cluster(segs, membership_from_hard(hard, k_max), start_frames, num_frames)
+
+
+def count_parts(
+    binarized: torch.Tensor,
+    valid_frames: torch.Tensor,
+    start_frames: torch.Tensor,
+    num_frames: int,
+    left: int,
+    right: int,
+):
+    """Numerator and denominator of the speaker-count overlap-add of a
+    chunk range on the given (globally consistent) frame grid: the summed
+    trimmed speaker counts and the overlap counts. Both are linear in the
+    chunks, so a sharded long-form run adds the per-shard parts and divides
+    once on the host, equal to the single-shot count (reference
+    speaker_count, speakerDiarizer.cpp:1665-1738). Padding chunks
+    (valid_frames 0) add nothing."""
+    F = binarized.shape[1]
+    summed = binarized[:, left : F - right, :].sum(dim=-1, keepdim=True)
+    ok = (valid_frames > 0)[:, None, None]
+    nan = torch.full_like(summed, float("nan"))
+    num = aggregate(
+        torch.where(ok, summed, nan), start_frames, num_frames, missing=0.0, skip_average=True
+    )
+    den = aggregate(
+        torch.where(ok, torch.ones_like(summed), nan),
+        start_frames,
+        num_frames,
+        missing=0.0,
+        skip_average=True,
+    )
+    return num[:, 0], den[:, 0]
+
+
 def stage3(
     segs: torch.Tensor,
     emb: torch.Tensor,
@@ -172,10 +234,7 @@ def stage3(
         k_max,
         train_cap=cap,
     )
-    hard = res.hard.reshape(n, S)
-    membership = (hard[:, :, None] == torch.arange(k_max, device=hard.device)) & (
-        hard >= 0
-    )[:, :, None]
+    membership = membership_from_hard(res.hard.reshape(n, S), k_max)
     activations = post_cluster(segs, membership, start_frames, num_frames)
     return activations.to(torch.float16), res.hard, res.num_large
 
@@ -276,6 +335,21 @@ class SpeakerDiarizationPipeline:
     ``ecapa_layout``: how the ECAPA trunk holds its activations in every
     stage-2 entry point — "nch" (the default, as in the JAX package), "nhc"
     or "gemm" (models/ecapa.py); same weights, same state dict.
+
+    ``mesh``: a parallel.mesh.DataMesh; every rank of its group then calls
+    the pipeline on the same request (SPMD), and the pipeline runs on the
+    mesh's device. Each rank runs a contiguous block of whole SincNet
+    batches and of whole stage-2 batches (``batch_spec``), with its own
+    kernels on its own card, and the blocks are gathered to every rank
+    (``replicated``): the SincNet features before the LSTM head, the
+    embeddings and too-short flags after stage 2. The LSTM head, the
+    post-processing, stage 3 and the decode run on every rank over the
+    whole request. A batch keeps the shape it has on one card and the head
+    sees every chunk, as on one card, so the libraries are given the same
+    calls and a rank's result equals the single-card run's; the head is
+    launch-bound (one step a frame and layer), so splitting it would save
+    little. ``seg_batch`` and ``emb_batch`` must divide by the world size
+    (the JAX package's rule).
     """
 
     # the largest merge loop (train rows T) the device stage 3 takes: T is
@@ -300,12 +374,18 @@ class SpeakerDiarizationPipeline:
         device_cluster_rows: int = 6144,
         k_max: int = 8,
         ecapa_layout: str = "nch",
+        mesh=None,
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
         if config.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {config.compute_dtype!r}")
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = config
         self.pyannet_cfg = pyannet_cfg or PyanNetConfig(
             sample_rate=config.segmentation.sample_rate,
@@ -329,6 +409,13 @@ class SpeakerDiarizationPipeline:
         self.embedding_model = emb_model.to(self.device, self.emb_dtype).eval()
         self.seg_batch = seg_batch or config.segmentation.batch_size
         self.emb_batch = emb_batch or config.embedding.batch_size
+        if mesh is not None and (
+            self.seg_batch % mesh.world_size or self.emb_batch % mesh.world_size
+        ):
+            raise ValueError(
+                f"seg_batch={self.seg_batch} and emb_batch={self.emb_batch} "
+                f"must be divisible by the mesh size ({mesh.world_size})"
+            )
         self.precision = precision
         if isinstance(clusterer, str):
             if clusterer == "ahc":
@@ -472,6 +559,35 @@ class SpeakerDiarizationPipeline:
     # device stages
     # ------------------------------------------------------------------
 
+    def _batch_starts(self, rows: int, batch: int):
+        """First rows of the batches of ``batch`` rows this rank runs: every
+        batch without a mesh, else the rank's block (mesh.batch_spec)."""
+        if self.mesh is None:
+            return range(0, rows, batch)
+        return [b * batch for b in batch_spec(self.mesh, rows // batch)]
+
+    def _joined(
+        self, parts, empty: torch.Tensor, rows: int, batch: int, dtype=None
+    ) -> torch.Tensor:
+        """This rank's outputs of its batches, concatenated (and cast to
+        ``dtype``) -> the whole request's, on every rank of the mesh
+        (mesh.replicated); ``empty`` is a (0, ...) block of the result's
+        shape and dtype, for a rank with no batch. Every rank's block must
+        have that dtype and row shape: the gather reads the blocks' bytes by
+        the receiving rank's."""
+        local = torch.cat(parts) if parts else empty
+        if dtype is not None:
+            local = local.to(dtype)
+        if self.mesh is None:
+            return local
+        if (local.dtype, local.shape[1:]) != (empty.dtype, empty.shape[1:]):
+            raise TypeError(
+                f"rank {self.mesh.rank}'s block is {local.dtype} {tuple(local.shape[1:])}, "
+                f"a rank with no batch sends {empty.dtype} {tuple(empty.shape[1:])}"
+            )
+        counts = [n * batch for n in batch_counts(self.mesh, rows // batch)]
+        return replicated(self.mesh, local, counts)
+
     def _post_process(self, segs: torch.Tensor, valid_frames: torch.Tensor):
         """Binarize -> mask choice -> speaker-count aggregation from the
         (padding-masked) scores. Returns (binarized, chosen, count_raw,
@@ -506,7 +622,8 @@ class SpeakerDiarizationPipeline:
         self, chunks: torch.Tensor, valid_frames: np.ndarray, valid_samples: np.ndarray
     ):
         """chunks (num_padded, window) -> PyanNet (SincNet in batches of
-        seg_batch, the LSTM head over every chunk) -> orphan/pad masking ->
+        seg_batch, a mesh rank's block of them gathered; the LSTM head over
+        every chunk) -> orphan/pad masking ->
         post-processing. ``valid_frames``/``valid_samples`` are host arrays:
         the model output frames backed by real audio (0 for padding chunks)
         and each chunk's true sample count. Returns (segs, binarized,
@@ -515,14 +632,16 @@ class SpeakerDiarizationPipeline:
         num_chunks = chunks.shape[0]
         vs_host = torch.from_numpy(valid_samples.astype(np.int64))
         vs_dev = self._to_device(vs_host) if self.exact_orphan else None
-        feats = torch.cat(
+        sb = self.seg_batch
+        cfg = self.pyannet_cfg
+        feats = self._joined(
             [
-                model.sincnet(
-                    chunks[i : i + self.seg_batch],
-                    None if vs_dev is None else vs_dev[i : i + self.seg_batch],
-                )
-                for i in range(0, num_chunks, self.seg_batch)
-            ]
+                model.sincnet(chunks[i : i + sb], None if vs_dev is None else vs_dev[i : i + sb])
+                for i in self._batch_starts(num_chunks, sb)
+            ],
+            chunks.new_empty((0, cfg.conv_channels, pyannet_num_frames(chunks.shape[1], cfg))),
+            num_chunks,
+            sb,
         )
         valid_head = (
             pyannet_valid_chain(vs_host, self.pyannet_cfg)[5] if self.exact_orphan else None
@@ -547,7 +666,7 @@ class SpeakerDiarizationPipeline:
         rows = chosen.reshape(chosen.shape[0] * S, -1)
         chunk_of_row = torch.arange(rows.shape[0], device=self.device) // S
         embs, shorts, packed, lens = [], [], [], []
-        for i in range(0, rows.shape[0], self.emb_batch):
+        for i in self._batch_starts(rows.shape[0], self.emb_batch):
             windows = chunks[chunk_of_row[i : i + self.emb_batch]]
             signals, wav_lens, too_short = mk.pack_and_lengths(
                 windows,
@@ -562,10 +681,22 @@ class SpeakerDiarizationPipeline:
             if with_internals:
                 packed.append(signals)
                 lens.append(wav_lens)
-        emb = torch.cat(embs).to(getattr(torch, cfg.transfer_dtype))
+        n, eb = rows.shape[0], self.emb_batch
+        transfer = getattr(torch, cfg.transfer_dtype)
+        new = chunks.new_empty
+        emb = self._joined(
+            embs, new((0, self.ecapa_cfg.emb_dim), dtype=transfer), n, eb, transfer
+        )
+        too_short = self._joined(shorts, new((0,), dtype=torch.bool), n, eb)
         if with_internals:
-            return emb, torch.cat(shorts), torch.cat(packed), torch.cat(lens)
-        return emb, torch.cat(shorts)
+            window = chunks.shape[1]
+            return (
+                emb,
+                too_short,
+                self._joined(packed, new((0, window)), n, eb),
+                self._joined(lens, new((0,)), n, eb),
+            )
+        return emb, too_short
 
     # ------------------------------------------------------------------
     # the pipeline

@@ -98,6 +98,10 @@ ENTRY_POINT_MODULES = (
     "clustering.spectral",
     "metrics.der",
     "models.ingest",
+    "parallel.dryrun",
+    "parallel.longform",
+    "parallel.mesh",
+    "parallel.sharding",
     "pipelines.embedding",
     "pipelines.segmentation",
     "pipelines.streaming",
@@ -152,6 +156,8 @@ assert pipe.warmup(2.0) == [32]
 a, b = pipe.map([wave, wave[:30000]])
 assert str(a) == str(pipe(wave))
 assert str(run_with_dumps(pipe, wave, DumpSession(write_text=False))) == str(a)
+from {PORT}.parallel.longform import LongFormDiarizer
+assert str(LongFormDiarizer(pipe, num_shards=2)(wave)) == str(a)
 assert der(a, a) == 0.0
 stream = StreamingDiarizer(pipe, emit_every=2)
 for block in np.array_split(wave, 4):
