@@ -122,12 +122,27 @@ Phases, each a JSON line on stdout:
      refuses two ranks on one card) running parallel/dryrun.py's three
      cases, in the parity mode and at the defaults, each rank launching
      half of a request's stage-2 batches; a failed rank fails the run;
- 14. sinc_conv: the SincNet conv's polyphase and strided forms on one
+ 14. server: runtime/server.py serving the default pipeline on an
+     ephemeral port: /diarize of the 59 s clip (JSON and RTTM) equal to a
+     direct call, three serial requests (client and server walls, launches
+     as phase 6's), four concurrent requests each equal to its serial
+     answer, a float32 "highest" service whose concurrent requests equal
+     its serial ones (turns and embeddings: threads share
+     precision_scope), an HTTP stream equal to StreamingDiarizer fed
+     directly, and the error answers (404, 413, 400, 429, health counts);
+ 15. training: PIT-BCE on the default PyanNet (32 x 80 000) and
+     AAM-softmax on the default ECAPA-TDNN (32 x 300 x 80, 7205 classes),
+     TF32 off: card against CPU (loss, gradients), ms a step, the float32
+     ASP kernel once a forward with its autograd backward against the
+     plain version's, every trunk parameter's gradient, the BatchNorm
+     statistics moved; deterministic resume bit-equal; the data-parallel
+     step (NCCL world 1; two gloo ranks on cuda:0) equal to one process;
+ 16. sinc_conv: the SincNet conv's polyphase and strided forms on one
      (32, 80 000) batch, TF32 off and on: device ms, the largest
      difference between the forms and from the CPU, the bound;
- 15. each phase's host wall seconds; the kernel summary line (launches:
+ 17. each phase's host wall seconds; the kernel summary line (launches:
      float32 ASP's from phase 7, the others' from phase 6, each plus
-     phases 8-13's, the spawned ranks' included), the nvidia-smi line, and
+     phases 8-15's, the spawned ranks' included), the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -3007,7 +3022,607 @@ def multirank_phase(torch, counters):
     return totals
 
 
+def http_post(url, data=b""):
+    """(status, body) of a POST: the JSON body, else the text."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, body, ctype = r.status, r.read(), r.headers.get("Content-Type")
+    except urllib.error.HTTPError as err:
+        status, body, ctype = err.code, err.read(), err.headers.get("Content-Type")
+    return status, (json.loads(body) if ctype == "application/json" else body.decode())
+
+
+def raw_post_status(url, path, headers):
+    """The status of a POST sent with exactly ``headers`` and no body."""
+    import http.client
+
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.putrequest("POST", path)
+        for k, v in headers.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        return conn.getresponse().status
+    finally:
+        conn.close()
+
+
+def wav_bytes(clip: np.ndarray) -> bytes:
+    """``clip`` (int16-exact floats) as a 16-bit RIFF WAV."""
+    import tempfile
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.io import wav as wavio
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "clip.wav")
+        wavio.write_wav(path, clip * 32768.0, 16000, 16)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+class served:
+    """runtime/server.py's ``serve`` for ``service`` on an ephemeral port,
+    in a thread; ``url`` while open, stopped and closed on exit."""
+
+    def __init__(self, service, **kwargs):
+        import threading
+
+        from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime.server import serve
+
+        self.server = serve(service, host="127.0.0.1", port=0, **kwargs)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def concurrently(fns):
+    """Each fn() in its own thread, all started together: their results, in
+    order, and the wall ms until the last returned. A raise in one raises
+    here."""
+    import threading
+
+    results, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            results[i] = fns[i]()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise errors[0]
+    return results, wall_ms
+
+
+def server_phase(torch, counters):
+    """The HTTP server (runtime/server.py) at full width on the card: the
+    default pipeline (seeded weights) behind ``serve`` on an ephemeral port.
+    ``/diarize`` of the 59 s clip as a 16-bit WAV, JSON and RTTM, equals a
+    direct ``pipeline(clip)`` (three serial requests: client and server
+    walls, launches a request as the main path's); four concurrent requests
+    (59, 30, 12.3 and 45 s) each equal their serial answer, the wall of the
+    four beside the serial sum; a float32 service at precision "highest"
+    (whose requests share ``precision_scope`` across the server's threads)
+    gives under four concurrent requests the turns and embeddings of its
+    serial ones; an HTTP stream (open, 1 s int16 feeds, close) equals a
+    ``StreamingDiarizer`` fed the same blocks directly, emission by
+    emission; /health counts, 404, 413, a bad Content-Length, malformed
+    integer queries (400) and the stream cap (429). Returns each kernel's
+    launches over the phase."""
+    import urllib.request
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.streaming import (
+        StreamingDiarizer,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime.server import (
+        DiarizationService,
+        _turns_json,
+    )
+
+    def counts():
+        return {name: getattr(k, attr) for name, (k, attr, _) in counters.items()}
+
+    def since(before):
+        return {name: n - before[name] for name, n in counts().items()}
+
+    pipe = SpeakerDiarizationPipeline(seed=0)
+    clip = synth_clip(59.0, seed=0, quantize=True)
+    body = wav_bytes(clip)
+    want = pipe(clip)  # warm
+    expected = per_request_launches(pipe, clip, counters)
+    for kernel, attr, _ in counters.values():
+        setattr(kernel, attr, 0)
+    service = DiarizationService(pipe, max_streams=2)
+    report = {"server": "runtime/server.py, default pipeline on the card"}
+    with served(service) as url:
+        # serial requests: JSON equal to the direct call, launches as the
+        # main path's, walls
+        walls, server_walls = [], []
+        for _ in range(3):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status, got = http_post(f"{url}/diarize", body)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launched = since(before)
+            check(status == 200, f"server: /diarize answered {status}: {got}")
+            check(got["turns"] == _turns_json(want), "server: /diarize turns differ from the direct call")
+            check(launched == expected, f"server: launches {launched}, expected {expected}")
+            server_walls.append(got["wall_seconds"] * 1e3)
+        status, rttm = http_post(f"{url}/diarize?format=rttm", body)
+        check(status == 200 and rttm == want.to_rttm("stream") + "\n", "server: RTTM differs")
+        report.update(
+            {
+                "turns": len(want.turns()),
+                "json_equal_direct": True,
+                "rttm_equal_direct": True,
+                "request_wall_ms": walls,
+                "server_wall_ms": server_walls,
+                "launches_a_request": expected,
+            }
+        )
+        # four concurrent requests, each against its serial answer
+        lengths = (59.0, 30.0, 12.3, 45.0)
+        bodies = [body] + [wav_bytes(clip[: int(s * 16000)]) for s in lengths[1:]]
+        t0 = time.perf_counter()
+        serial = [http_post(f"{url}/diarize", b)[1]["turns"] for b in bodies]
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        answers, concurrent_ms = concurrently(
+            [lambda b=b: http_post(f"{url}/diarize", b)[1]["turns"] for b in bodies]
+        )
+        check(answers == serial, "server: a concurrent request differs from its serial answer")
+        report["concurrent"] = {"audio_s": lengths, "wall_ms": concurrent_ms, "serial_sum_ms": serial_ms}
+        # an HTTP stream against StreamingDiarizer fed directly
+        blocks = np.array_split(clip, 59)
+        direct = StreamingDiarizer(pipe, emit_every=8)
+        direct_emits = []
+        for block in blocks:
+            ann = direct.feed(block)
+            direct_emits.append(None if ann is None else _turns_json(ann))
+        direct_final = _turns_json(direct.flush())
+        sid = http_post(f"{url}/stream/open?emit_every=8")[1]["stream_id"]
+        feed_ms, http_emits = [], []
+        for block in blocks:
+            pcm = np.round(block * 32768.0).astype("<i2").tobytes()
+            t0 = time.perf_counter()
+            status, got = http_post(f"{url}/stream/feed?id={sid}", pcm)
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"server: stream feed answered {status}: {got}")
+            http_emits.append(got["turns"])
+        status, final = http_post(f"{url}/stream/close?id={sid}")
+        check(status == 200 and final["stream_seconds"] == 59.0, f"server: close {status} {final}")
+        check(http_emits == direct_emits, "server: the HTTP stream's emissions differ")
+        check(final["turns"] == direct_final, "server: the HTTP stream's flush differs")
+        emitting = [ms for ms, e in zip(feed_ms, http_emits) if e is not None]
+        report["stream"] = {
+            "feeds": len(blocks),
+            "emissions": len(emitting),
+            "emitting_feed_ms_median": statistics.median(emitting),
+            "other_feed_ms_median": statistics.median(
+                [ms for ms, e in zip(feed_ms, http_emits) if e is None]
+            ),
+            "equal_direct": True,
+        }
+        # the error answers
+        health = json.load(urllib.request.urlopen(f"{url}/health"))
+        a = http_post(f"{url}/stream/open")[1]["stream_id"]
+        b = http_post(f"{url}/stream/open")[1]["stream_id"]
+        answers = {
+            "health_requests": health["requests"],
+            "404": http_post(f"{url}/nope")[0],
+            "bad_content_length": raw_post_status(url, "/diarize", {"Content-Length": "x"}),
+            "malformed_emit_every": http_post(f"{url}/stream/open?emit_every=abc")[0],
+            "malformed_num_speakers": http_post(f"{url}/diarize?num_speakers=two", body)[0],
+            "429_third_stream": http_post(f"{url}/stream/open")[0],
+            "unknown_stream": http_post(f"{url}/stream/feed?id=zz")[0],
+        }
+        for sid in (a, b):
+            http_post(f"{url}/stream/close?id={sid}")
+    with served(service, max_request_bytes=1024) as url:
+        answers["413"] = http_post(f"{url}/diarize", body)[0]
+    check(
+        answers
+        == {
+            "health_requests": 4 + 2 * len(bodies),
+            "404": 404,
+            "bad_content_length": 400,
+            "malformed_emit_every": 400,
+            "malformed_num_speakers": 400,
+            "429_third_stream": 429,
+            "unknown_stream": 404,
+            "413": 413,
+        },
+        f"server: error answers {answers}",
+    )
+    report["answers"] = answers
+    # a float32 service at precision "highest": four concurrent requests
+    # against serial ones, turns and embeddings
+    f32 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    hi = SpeakerDiarizationPipeline(f32, seed=0, precision="highest")
+    hi(clip)  # warm
+    kept = record_requests(hi)
+    hi_service = DiarizationService(hi)
+    with served(hi_service) as url:
+        serial = [http_post(f"{url}/diarize", b)[1]["turns"] for b in bodies]
+        serial_emb = {p["num_samples"]: p["emb"].clone() for p in kept}
+        kept.clear()
+        answers, hi_ms = concurrently(
+            [lambda b=b: http_post(f"{url}/diarize", b)[1]["turns"] for b in bodies]
+        )
+    check(answers == serial, "server highest: a concurrent request's turns differ")
+    errs = [float((p["emb"] - serial_emb[p["num_samples"]]).abs().max()) for p in kept]
+    check(len(kept) == 4, f"server highest: {len(kept)} dispatches recorded")
+    bit_equal = all(torch.equal(p["emb"], serial_emb[p["num_samples"]]) for p in kept)
+    check(
+        all(within(torch, p["emb"], serial_emb[p["num_samples"]], 1e-5, 1e-6) for p in kept),
+        f"server highest: concurrent embeddings differ from serial ones by {max(errs)}",
+    )
+    report["highest"] = {
+        "concurrent_wall_ms": hi_ms,
+        "turns_equal": True,
+        "embeddings_bit_equal": bit_equal,
+        "embeddings_max_abs_err": max(errs),
+        "tf32_flags_after": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+    }
+    totals = counts()
+    report["launches"] = totals
+    emit(report)
+    del pipe, hi
+    return totals
+
+
+def grads_of(torch, params):
+    """{dot-joined key: a CPU copy of its gradient} of a parameter tree."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import flatten_pytree
+
+    return {k: p.grad.detach().cpu() for k, p in flatten_pytree(params).items()}
+
+
+# the card's float32 gradients against the CPU's: the largest relative L2
+# distance of a whole gradient the check lets through, for each model. On
+# an H100 the sound first steps read 3.1e-7 (PyanNet) and 1.45e-5 (ECAPA),
+# and the same steps with cuDNN's TF32 on (``tf32_control``) 5.3e-5 and
+# 8.2e-4; each limit lies near the geometric mean of its model's two
+# readings, and the phase fails unless the control reads above it
+GRAD_REL_L2 = {"pit_bce": 4e-6, "aam": 1e-4}
+
+
+def grad_agreement(cpu: dict, card: dict) -> dict:
+    """Card gradients against CPU ones: the relative L2 distance of the
+    whole gradient (the check wants it within ``GRAD_REL_L2``), and leaf
+    by leaf against an allowance of 1e-2 of the leaf's largest CPU gradient
+    plus 1e-4 of the model's largest. Both devices
+    round in float32, and a sum that cancels (a weight gradient over 9600
+    frames) keeps the rounding of its terms: leaves deep below the LSTM
+    (SincNet's, orders of magnitude below the model's largest) and biases
+    whose gradient is 0 in exact arithmetic (a per-channel shift that an
+    instance norm or the ASP softmax cancels) are rounding against
+    themselves. Returns the worst leaf's largest difference over its
+    allowance (<= 1 passes), its key, and the relative L2 distance."""
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst, key, num, den = 0.0, "", 0.0, 0.0
+    for k, want in cpu.items():
+        diff = (card[k] - want).double()
+        allowance = 1e-2 * float(want.abs().max()) + 1e-4 * top
+        if float(diff.abs().max()) / allowance > worst:
+            worst, key = float(diff.abs().max()) / allowance, k
+        num += float((diff**2).sum())
+        den += float((want.double() ** 2).sum())
+    return {"worst_over_allowance": worst, "worst_leaf": key, "rel_l2": (num / den) ** 0.5}
+
+
+def tf32_control(torch, make_trainer, batch, cpu_grads: dict) -> dict:
+    """``grad_agreement`` of the first step run with precision "default"
+    (PyTorch's own flags: cuDNN's convolutions and RNNs in TF32, cuBLAS in
+    float32), the precision that a ``precision_scope`` leaking its flags
+    would give a "highest" step: the check must fail it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        trainer = make_trainer()
+        trainer.step(*batch)
+        return grad_agreement(cpu_grads, grads_of(torch, trainer.params))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def training_phase(torch, counters):
+    """Training (models/training.py, models/trainer.py, utils/checkpoint.py)
+    at full width on the card, TF32 off (``precision_scope("highest")``):
+
+      - PIT-BCE on the default PyanNet, a batch of 32 x 80000 samples, 3
+        classes: the first step's loss and gradients on the card against
+        the same step on the CPU (loss rtol 1e-4; each leaf's gradients
+        within their allowance, ``grad_agreement``; the step with cuDNN's
+        TF32 on must fail that check, ``tf32_control``), then Adam steps timed (ms
+        a step); the LSTM's cuDNN backward runs (its weights' gradients
+        nonzero);
+      - AAM-softmax on the default ECAPA-TDNN, features 32 x 300 frames x 80
+        mels, a 7205-class head (speechbrain's VoxCeleb recipe), lr 1e-3:
+        the same card-against-CPU check; the float32 ASP kernel launched
+        once a forward; every trunk parameter with a gradient, nonzero but
+        the ASP conv's bias (0 in exact arithmetic: the softmax cancels it);
+        the BatchNorm running statistics moved; the kernel's backward
+        against autograd through ``asp_pool_plain`` on the step's own ASP
+        inputs; ms a step;
+      - resume: under ``torch.use_deterministic_algorithms(True)``, PyanNet
+        steps 1-2, a checkpoint, a fresh trainer restoring it and steps 3-4
+        bit-equal to four uninterrupted steps (losses and every state leaf);
+        ECAPA's reflect padding has no deterministic CUDA backward, so it
+        is not run there;
+      - data-parallel: parallel/dryrun.py ``train_case`` (a slim PyanNet's
+        PIT-BCE Adam step) on an NCCL mesh of world 1 in this process, and
+        on two gloo ranks sharing cuda:0 with uneven blocks (5 rows), each
+        equal to one process.
+
+    Returns each kernel's launches over the phase."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import ecapa as ecapa_mod
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import training as T
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
+        ecapa_tree,
+        pyannet_tree,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.ecapa import (
+        EcapaConfig,
+        EcapaTDNN,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.pyannet import (
+        PyanNet,
+        PyanNetConfig,
+        pyannet_num_frames,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.trainer import (
+        Trainer,
+        segmentation_trainer,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import asp_cuda
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.mesh import make_mesh
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        precision_scope,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.utils.checkpoint import tree_leaves
+
+    for kernel, attr, _ in counters.values():
+        setattr(kernel, attr, 0)
+    rng = np.random.default_rng(0)
+    report = {"training": "full width, precision highest"}
+
+    def timed_steps(trainer, batch, steps=3):
+        """(host ms of each step, ended by a wait for the card; the losses)."""
+        times, losses = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.step(*batch))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times, losses
+
+    # --- PIT-BCE, default PyanNet
+    seg_cfg = PyanNetConfig()
+    seg_params = pyannet_tree(PyanNet(seg_cfg))
+    frames = pyannet_num_frames(80000, seg_cfg)
+    seg_batch = (
+        (0.1 * rng.normal(size=(32, 80000))).astype(np.float32),
+        (rng.uniform(size=(32, frames, seg_cfg.num_classes)) > 0.7).astype(np.float32),
+    )
+    with precision_scope("highest"):
+        cpu = segmentation_trainer(seg_params, seg_cfg, device="cpu")
+        card = segmentation_trainer(seg_params, seg_cfg)
+        loss_cpu, loss_card = cpu.step(*seg_batch), card.step(*seg_batch)
+        cpu_grads = grads_of(torch, cpu.params)
+        agree = grad_agreement(cpu_grads, grads_of(torch, card.params))
+        lstm_grad = float(card.params["lstm"][0]["fwd"]["weight_hh"].grad.abs().max())
+        seg_ms, seg_losses = timed_steps(card, seg_batch)
+    control = tf32_control(
+        torch, lambda: segmentation_trainer(seg_params, seg_cfg), seg_batch, cpu_grads
+    )
+    check(
+        np.isfinite(loss_card) and abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+        f"training pit-bce: loss {loss_card} on the card, {loss_cpu} on the CPU",
+    )
+    check(
+        agree["worst_over_allowance"] <= 1 and agree["rel_l2"] <= GRAD_REL_L2["pit_bce"],
+        f"training pit-bce: gradients {agree}",
+    )
+    check(
+        control["rel_l2"] > GRAD_REL_L2["pit_bce"],
+        f"training pit-bce: the TF32 control passes the gradient check {control}",
+    )
+    check(lstm_grad > 0, "training pit-bce: no LSTM gradient")
+    report["pit_bce"] = {
+        "batch": [32, 80000],
+        "loss_card": loss_card,
+        "loss_cpu": loss_cpu,
+        "gradients": agree,
+        "gradients_tf32_control": control,
+        "lstm_backward": "cudnn, train mode",
+        "ms_a_step": seg_ms,
+        "losses": [loss_card] + seg_losses,
+    }
+    del cpu, card, cpu_grads
+
+    # --- AAM-softmax, default ECAPA-TDNN, 7205 classes
+    emb_cfg = EcapaConfig()
+    both = {
+        "params": ecapa_tree(EcapaTDNN(emb_cfg)),
+        "head": T.init_aam_head(torch.Generator().manual_seed(0), emb_cfg.emb_dim, 7205),
+    }
+    emb_batch = (
+        rng.normal(size=(32, 300, 80)).astype(np.float32),
+        rng.uniform(0.6, 1.0, size=32).astype(np.float32),
+        rng.integers(0, 7205, size=32),
+    )
+    seen = []
+    real_asp = ecapa_mod.asp_pool
+
+    def watched_asp(*args, **kwargs):
+        if not seen:
+            seen.append([t.detach().clone() for t in args[:5]])
+        return real_asp(*args, **kwargs)
+
+    def make(mesh):
+        return T.make_embedding_train_step(emb_cfg, mesh)
+
+    with precision_scope("highest"):
+        cpu = Trainer(both, make, device="cpu")
+        card = Trainer(both, make)
+        loss_cpu = cpu.step(*emb_batch)
+        ecapa_mod.asp_pool = watched_asp
+        try:
+            before = asp_cuda.asp_pool.float32_launches
+            loss_card = card.step(*emb_batch)
+            launched = asp_cuda.asp_pool.float32_launches - before
+        finally:
+            ecapa_mod.asp_pool = real_asp
+        card_grads = grads_of(torch, card.params)
+        cpu_grads = grads_of(torch, cpu.params)
+        agree = grad_agreement(cpu_grads, card_grads)
+        trunk = {k: g for k, g in card_grads.items() if k.startswith("params.")}
+        zero = [k for k, g in trunk.items() if not float(g.abs().max()) > 0]
+        bn_before = both["params"]["mfa"]["bn"]["running_var"]
+        emb_ms, emb_losses = timed_steps(card, emb_batch)
+        bn_moved = not np.array_equal(card.params["params"]["mfa"]["bn"]["running_var"].detach().cpu().numpy(), bn_before)
+        # the kernel's backward on the step's own ASP inputs
+        x, a, w, b, mask = seen[0]
+        leaves = [t.requires_grad_() for t in (x, a, w, b)]
+        mean, std = asp_cuda.asp_pool(*leaves, mask)
+        gm, gs = torch.randn_like(mean), torch.randn_like(std)
+        got = torch.autograd.grad((mean * gm + std * gs).sum(), leaves)
+        ref = [t.detach().clone().requires_grad_() for t in leaves]
+        pm, ps = asp_cuda.asp_pool_plain(*ref, mask)
+        want = torch.autograd.grad((pm * gm + ps * gs).sum(), ref)
+        bwd = {
+            name: float((g - h).abs().max()) / float(h.abs().max())
+            for name, g, h in zip(("x", "a_tanh", "w"), got, want)
+        }
+        bias_rel = max(float(got[3].abs().max()), float(want[3].abs().max())) / float(want[2].abs().max())
+        fwd_ms = time_ms(torch, lambda: asp_cuda.asp_pool(*leaves, mask), reps=10)
+        bwd_ms = time_ms(
+            torch,
+            lambda: asp_cuda.asp_pool_backward(*[t.detach() for t in leaves], mask, 1e-12, gm, gs),
+            reps=10,
+        )
+    control = tf32_control(torch, lambda: Trainer(both, make), emb_batch, cpu_grads)
+    check(launched == 1, f"training aam: the float32 ASP kernel launched {launched} times a step")
+    check(
+        np.isfinite(loss_card) and abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+        f"training aam: loss {loss_card} on the card, {loss_cpu} on the CPU",
+    )
+    check(
+        agree["worst_over_allowance"] <= 1 and agree["rel_l2"] <= GRAD_REL_L2["aam"],
+        f"training aam: gradients {agree}",
+    )
+    check(
+        control["rel_l2"] > GRAD_REL_L2["aam"],
+        f"training aam: the TF32 control passes the gradient check {control}",
+    )
+    check(zero == ["params.asp.conv.bias"] or not zero, f"training aam: no gradient for {zero}")
+    check(bn_moved, "training aam: the BatchNorm running statistics did not move")
+    check(max(bwd.values()) <= 1e-4 and bias_rel <= 1e-3, f"training aam: ASP backward {bwd}, bias {bias_rel}")
+    report["aam"] = {
+        "feats": [32, 300, 80],
+        "classes": 7205,
+        "loss_card": loss_card,
+        "loss_cpu": loss_cpu,
+        "gradients": agree,
+        "gradients_tf32_control": control,
+        "asp_float32_launches_a_step": launched,
+        "trunk_leaves": len(trunk),
+        "trunk_leaves_zero_grad": zero,
+        "batchnorm_statistics_moved": bn_moved,
+        "asp_backward_rel_err": bwd,
+        "asp_bias_grad_rel": bias_rel,
+        "asp_forward_kernel_ms": fwd_ms,
+        "asp_backward_ms": bwd_ms,
+        "ms_a_step": emb_ms,
+        "losses": [loss_card] + emb_losses,
+    }
+    del cpu, card, seen, cpu_grads
+
+    # --- resume, deterministic
+    tmp = tempfile.mkdtemp()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with precision_scope("highest"):
+            batches = [
+                ((0.1 * rng.normal(size=(32, 80000))).astype(np.float32), seg_batch[1])
+                for _ in range(4)
+            ]
+            ref = segmentation_trainer(seg_params, seg_cfg)
+            ref_losses = [ref.step(*b) for b in batches]
+            first = segmentation_trainer(seg_params, seg_cfg)
+            losses = [first.step(*b) for b in batches[:2]]
+            first.save_checkpoint(tmp)
+            fresh = segmentation_trainer(pyannet_tree(PyanNet(seg_cfg, torch.Generator().manual_seed(9))), seg_cfg)
+            check(fresh.restore_checkpoint(tmp) == 2, "training resume: wrong step restored")
+            losses += [fresh.step(*b) for b in batches[2:]]
+            state_equal = all(
+                torch.equal(torch.as_tensor(p).cpu(), torch.as_tensor(q).cpu())
+                for p, q in zip(tree_leaves(T.train_state_tree(ref.state)), tree_leaves(T.train_state_tree(fresh.state)))
+            )
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(losses == ref_losses and state_equal, f"training resume: {losses} against {ref_losses}")
+    report["resume"] = {"deterministic": True, "losses": losses, "bit_equal": True}
+    del ref, first, fresh
+
+    # --- data-parallel: NCCL world 1, then two gloo ranks on cuda:0
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}", world_size=1, rank=0
+    )
+    try:
+        nccl = dryrun.train_case(make_mesh())
+    finally:
+        dist.destroy_process_group()
+    gloo = dryrun.spawn(dryrun.train_case, 2, 5, device="cuda", share_card=True, timeout=300)
+    check(
+        [r["rows"] for r in gloo] == [3, 2]
+        and gloo[0]["loss"] == gloo[1]["loss"]
+        and gloo[0]["params_digest"] == gloo[1]["params_digest"],
+        f"training dp: the gloo ranks differ {gloo}",
+    )
+    report["data_parallel"] = {"nccl_world_1": nccl, "gloo_world_2_cuda0": gloo}
+    totals = {name: getattr(k, attr) for name, (k, attr, _) in counters.items()}
+    report["launches"] = totals
+    emit(report)
+    return totals
+
+
 def main() -> int:
+    # the training phase's resume check runs cuBLAS in deterministic mode,
+    # which needs this set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3081,6 +3696,8 @@ def main() -> int:
         streaming_phase,
         longform_phase,
         multirank_phase,
+        server_phase,
+        training_phase,
     ):
         for name, n in run(phase, counters).items():
             totals[name] += n

@@ -27,6 +27,9 @@ from .pyannet import PyanNet, PyanNetConfig
 
 
 def flatten_pytree(tree, prefix="") -> Dict[str, np.ndarray]:
+    """{dot-joined key: leaf}; a tensor leaf stays the tensor (a training
+    step applies a tree of them, models/training.py), any other becomes a
+    numpy array."""
     flat = {}
     if isinstance(tree, Mapping):
         for k, v in tree.items():
@@ -35,7 +38,7 @@ def flatten_pytree(tree, prefix="") -> Dict[str, np.ndarray]:
         for i, v in enumerate(tree):
             flat.update(flatten_pytree(v, f"{prefix}{i}."))
     else:
-        flat[prefix[:-1]] = np.asarray(tree)
+        flat[prefix[:-1]] = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
     return flat
 
 
@@ -95,15 +98,20 @@ def pyannet_state_from_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     ``*_l0`` / ``*_l0_reverse`` (same i,f,g,o gate order). A baked
     filterbank stays ``sincnet.sinc.filters`` (a ``PyanNet`` built with
     ``baked_sinc=True`` holds that buffer; ``build_pyannet`` picks it)."""
-    state = {}
-    for key, value in flatten_pytree(tree).items():
-        parts = key.split(".")
-        if parts[0] == "lstm":
-            i, direction, name = parts[1], parts[2], parts[3]
-            suffix = "_l0" if direction == "fwd" else "_l0_reverse"
-            key = f"lstm.{i}.{name}{suffix}"
-        state[key] = _tensor(value)
-    return state
+    return {
+        pyannet_state_key(key): _tensor(value) for key, value in flatten_pytree(tree).items()
+    }
+
+
+def pyannet_state_key(key: str) -> str:
+    """A PyanNet pytree key (dot-joined) -> its ``PyanNet`` state-dict name
+    (``pyannet_state_from_tree``'s renames)."""
+    parts = key.split(".")
+    if parts[0] != "lstm":
+        return key
+    i, direction, name = parts[1], parts[2], parts[3]
+    suffix = "_l0" if direction == "fwd" else "_l0_reverse"
+    return f"lstm.{i}.{name}{suffix}"
 
 
 def build_pyannet(
@@ -146,25 +154,50 @@ def params_from_jax(
     )
 
 
+def train_state_from_jax(params, count, mu, nu, step, optimizer=None, device=None):
+    """A JAX ``TrainState`` carried into the port's (models/training.py):
+    its params tree, optax adam's ``count``, ``mu`` and ``nu`` and its
+    ``step``, as numpy arrays (``jax.device_get`` gives them). The params
+    go to ``device`` (None: the CUDA card; pass "cpu" for the CPU) and
+    Adam's moments and count into ``optimizer`` (a factory, default Adam at
+    lr 1e-3), so the next step continues the JAX run."""
+    from .training import init_train_state, load_train_state
+
+    state = init_train_state(params, optimizer, device)
+    return load_train_state(state, (params, (count, mu, nu), step))
+
+
 def params_to_jax(seg_model: torch.nn.Module, emb_model: torch.nn.Module) -> Dict:
     """The inverse of ``params_from_jax``: the models' weights as
     ``{"segmentation": tree, "embedding": tree}`` of float32 numpy arrays in
     the JAX package's layout, for ``save_checkpoint``. A baked filterbank
     comes back as ``sincnet.sinc.filters``, as the JAX package saves it."""
+    return {"segmentation": pyannet_tree(seg_model), "embedding": ecapa_tree(emb_model)}
+
+
+def pyannet_tree(model: torch.nn.Module) -> Dict:
+    """A PyanNet's weights as the JAX package's pytree (float32 numpy)."""
     seg = {}
-    for key, value in seg_model.state_dict().items():
+    for key, value in model.state_dict().items():
         parts = key.split(".")
         if parts[0] == "lstm":
             name = parts[2]
             direction = "bwd" if name.endswith("_reverse") else "fwd"
             key = f"lstm.{parts[1]}.{direction}.{name.split('_l0')[0]}"
         seg[key] = value.detach().float().cpu().numpy()
-    emb = {
-        key: value.detach().float().cpu().numpy()
-        for key, value in emb_model.state_dict().items()
-        if not key.endswith("num_batches_tracked")
-    }
-    return {"segmentation": unflatten_pytree(seg), "embedding": unflatten_pytree(emb)}
+    return unflatten_pytree(seg)
+
+
+def ecapa_tree(model: torch.nn.Module) -> Dict:
+    """An ECAPA-TDNN's weights as the JAX package's pytree (float32 numpy,
+    the BatchNorm running statistics included)."""
+    return unflatten_pytree(
+        {
+            key: value.detach().float().cpu().numpy()
+            for key, value in model.state_dict().items()
+            if not key.endswith("num_batches_tracked")
+        }
+    )
 
 
 

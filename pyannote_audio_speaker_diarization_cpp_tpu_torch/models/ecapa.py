@@ -9,7 +9,8 @@ attentive-stats pooling with global context, 192-d embedding. ``lengths``
 SE mean, ASP statistics and attention softmax.
 
 All convolutions are stride-1 "same" with reflect padding (speechbrain
-Conv1d default); BatchNorm runs in inference mode off running statistics.
+Conv1d default); BatchNorm runs in inference mode off running statistics
+(a train step trains those too, models/training.py).
 The attentive-statistics tail runs as the fused kernel of ops/asp_cuda.py.
 
 ``layout`` picks how the trunk holds its activations, on the same
@@ -78,7 +79,7 @@ class TDNNBlock(nn.Module):
     def __init__(self, in_c: int, out_c: int, kernel: int, dilation: int = 1):
         super().__init__()
         self.conv = L.conv1d_same(in_c, out_c, kernel, dilation)
-        self.bn = nn.BatchNorm1d(out_c)
+        self.bn = L.BatchNorm1d(out_c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(F.relu(self.conv(x)))
@@ -279,7 +280,7 @@ class EcapaTDNN(nn.Module):
         self.block3 = SERes2NetBlock(cfg, 3)
         self.mfa = TDNNBlock(sum(ch[1:4]), ch[-1], cfg.kernel_sizes[-1], cfg.dilations[-1])
         self.asp = AttentiveStatsPool(cfg)
-        self.asp_bn = nn.BatchNorm1d(ch[-1] * 2)
+        self.asp_bn = L.BatchNorm1d(ch[-1] * 2)
         self.fc = nn.Conv1d(ch[-1] * 2, cfg.emb_dim, 1)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

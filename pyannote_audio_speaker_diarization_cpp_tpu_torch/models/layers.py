@@ -158,9 +158,39 @@ def conv1d_gemm(
     return out
 
 
+def statistics_trained(bn: nn.BatchNorm1d) -> bool:
+    """Whether ``bn``'s running statistics require a gradient: a train step
+    (models/training.py) trains them, as the JAX package's optimizer does."""
+    return bn.running_mean.requires_grad or bn.running_var.requires_grad
+
+
+def batchnorm_arithmetic(x: torch.Tensor, bn: nn.BatchNorm1d, shape) -> torch.Tensor:
+    """Inference-mode ``bn`` written out as the JAX package's
+    ``batchnorm1d``, (x - mean) * rsqrt(var + eps) * w + b, its parameters
+    viewed as ``shape``: differentiable in the running statistics, which
+    ``F.batch_norm`` refuses."""
+    return (x - bn.running_mean.view(shape)) * torch.rsqrt(
+        bn.running_var.view(shape) + bn.eps
+    ) * bn.weight.view(shape) + bn.bias.view(shape)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over (B, C) or (B, C, T), used in inference mode
+    (the module stays in ``eval()``); when its running statistics require a
+    gradient it runs ``batchnorm_arithmetic`` instead of ``F.batch_norm``.
+    Same parameters and state dict."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if statistics_trained(self):
+            return batchnorm_arithmetic(x, self, (1, -1) + (1,) * (x.dim() - 2))
+        return super().forward(x)
+
+
 def batchnorm1d_nlc(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """Inference-mode ``bn`` over channels-last (B, C) or (B, T, C): its
     running statistics, channels on the last axis."""
+    if statistics_trained(bn):
+        return batchnorm_arithmetic(x, bn, (-1,))
     flat = F.batch_norm(
         x.reshape(-1, x.shape[-1]),
         bn.running_mean,

@@ -85,7 +85,10 @@ def asp_pool(
     On a CUDA tensor this launches the kernel of x's dtype in
     ``csrc/asp.cu`` or raises: bfloat16 takes A up to
     ``asp_max_attention()`` (256), float32 up to ``asp_max_attention_f32()``
-    (128). On a CPU tensor it runs ``asp_pool_plain``.
+    (128). Where autograd records the call (grad mode on and an input that
+    requires a gradient) the launch is a node whose backward is
+    ``asp_pool_backward``; under ``inference_mode`` or ``no_grad`` it is
+    not. On a CPU tensor it runs ``asp_pool_plain``.
     """
     if x.dim() != 3 or a_tanh.dim() != 3 or w.dim() != 2 or mask.dim() != 2:
         raise ValueError("asp_pool wants x (B,C,T), a_tanh (B,A,T), w (C,A), mask (B,T)")
@@ -107,6 +110,16 @@ def asp_pool(
         t.device != x.device for t in (a_tanh, w, bias, mask)
     ):
         raise ValueError("asp_pool: all tensors must be on one CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a_tanh, w, bias)):
+        return _AspPool.apply(x, a_tanh, w, bias, mask, eps)
+    return _launch(x, a_tanh, w, bias, mask, eps)
+
+
+def _launch(x, a_tanh, w, bias, mask, eps):
+    """The kernel of x's dtype on (B, C, T) CUDA tensors that ``asp_pool``
+    checked; counts the launch."""
+    B, C, T = x.shape
+    A = a_tanh.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"asp_pool: x must be float32 or bfloat16, got {x.dtype}")
     if a_tanh.dtype != x.dtype or w.dtype != x.dtype:
@@ -200,6 +213,66 @@ def asp_pool(
     else:
         asp_pool.bfloat16_launches += 1
     return mean, std
+
+
+def asp_pool_backward(
+    x: torch.Tensor,
+    a_tanh: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor,
+    eps: float,
+    g_mean: torch.Tensor,
+    g_std: torch.Tensor,
+):
+    """The gradients of ``asp_pool``'s (mean, std) for x, a_tanh, w and bias,
+    in closed form, each in its input's dtype: the scores and the masked
+    softmax p are recomputed in float32, then with gv the std's gradient
+    through sqrt and both clamps and gm = g_mean - 2 mean gv,
+
+        dx = p (gm + 2 gv x),  ds = p (gm (x - mean) + gv (x^2 - E[x^2])),
+        dW = sum_b,t ds a^T,   dbias = sum_b,t ds,   da = W^T ds.
+
+    Plain torch ops (products and reductions, no atomics), so a training
+    step is deterministic; they equal autograd through ``asp_pool_plain``."""
+    a = a_tanh.float()
+    wf = w.float()
+    s = torch.einsum("ca,bat->bct", wf, a) + bias.float()[None, :, None]
+    s = s.masked_fill(~(mask[:, None, :] > 0), float("-inf"))
+    p = torch.softmax(s, dim=2)
+    xf = x.float()
+    mean = (p * xf).sum(dim=2)
+    sq = (p * xf * xf).sum(dim=2)
+    raw = sq - mean * mean
+    var = torch.clamp(raw, min=0.0)
+    std = torch.sqrt(torch.clamp(var, min=eps))
+    gv = torch.where((raw >= 0) & (var >= eps), g_std.float() / (2 * std), 0.0)
+    gm = g_mean.float() - 2 * mean * gv
+    gm, gv = gm[..., None], gv[..., None]
+    gx = (p * (gm + 2 * gv * xf)).to(x.dtype)
+    ds = p * (gm * (xf - mean[..., None]) + gv * (xf * xf - sq[..., None]))
+    ga = torch.einsum("ca,bct->bat", wf, ds).to(a_tanh.dtype)
+    gw = torch.einsum("bct,bat->ca", ds, a).to(w.dtype)
+    gb = ds.sum(dim=(0, 2)).to(bias.dtype)
+    return gx, ga, gw, gb
+
+
+class _AspPool(torch.autograd.Function):
+    """``asp_pool`` where autograd records it: the forward launches the
+    kernel, the backward is ``asp_pool_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, a_tanh, w, bias, mask, eps):
+        ctx.save_for_backward(x, a_tanh, w, bias, mask)
+        ctx.eps = eps
+        return _launch(x, a_tanh, w, bias, mask, eps)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_std):
+        x, a_tanh, w, bias, mask = ctx.saved_tensors
+        grads = asp_pool_backward(x, a_tanh, w, bias, mask, ctx.eps, g_mean, g_std)
+        grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad)]
+        return (*grads, None, None)
 
 
 # one launch count for each of the two kernels

@@ -7,7 +7,10 @@ cases, on ``torch.distributed`` ranks (one process a rank):
      device, with ``num_speakers=2`` (the host dendrogram search);
   1b. the same with no speaker bound (device clustering, when the pipeline
      takes it);
-  1c. long-form with 2 shards on the mesh equals long-form on one rank.
+  1c. long-form with 2 shards on the mesh equals long-form on one rank;
+  2. one data-parallel PIT-BCE Adam step of a slim PyanNet (batch 2 x
+     world rows of 4000 samples; ``train_case``) equals the same step in one
+     process: loss and gradients, and every rank holds the same parameters.
 
 Every rank asserts its cases (``require_equal``) and reports the largest
 difference between the mesh's and the single rank's embeddings, and the
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import DataMesh, backend_for, make_mesh
+from .mesh import DataMesh, backend_for, batch_spec, make_mesh
 
 
 def free_port() -> int:
@@ -161,7 +164,7 @@ def dryrun_cases(
     rtol: float = 1e-3,
     atol: float = 1e-4,
 ) -> dict:
-    """Cases 1, 1b and 1c on this rank. ``params``: a params tree, a
+    """Cases 1, 1b, 1c and 2 on this rank. ``params``: a params tree, a
     directory written by models/convert.py ``save_checkpoint``, or None
     (seeded weights, the same on every rank). Returns each case's turns and
     whether they are equal, and the embeddings' largest difference (valid
@@ -205,6 +208,64 @@ def dryrun_cases(
     report["launches"] = _since(start)
     if require_equal and not (report["too_short_equal"] and report["emb_within"]):
         raise AssertionError(f"the mesh's embeddings diverged: {report}")
+    report["2"] = train_case(mesh)
+    return report
+
+
+# the JAX package's dry-run training model: a slim PyanNet
+SLIM_PYANNET = dict(
+    num_filters=16, conv_channels=12, lstm_hidden=16, lstm_layers=2, linear_hidden=16
+)
+
+
+def train_case(
+    mesh: DataMesh,
+    batch: Optional[int] = None,
+    num_samples: int = 4000,
+    seed: int = 0,
+    rtol: float = 1e-4,
+    atol: float = 1e-6,
+) -> dict:
+    """Case 2 on this rank: one PIT-BCE step with Adam of a slim PyanNet
+    (seeded weights) on the mesh, each rank on its block of the batch's
+    rows (``batch`` default 2 x world; uneven blocks allowed), against the
+    same step on the whole batch in this process, both on the rank's device
+    with TF32 off. The losses and the (summed) gradients must agree at
+    ``rtol``/``atol``; raises otherwise. Returns the losses, this rank's rows,
+    the gradients' largest difference and a digest of the stepped
+    parameters (equal on every rank)."""
+    from ..models.convert import pyannet_tree
+    from ..models.pyannet import PyanNet, PyanNetConfig, pyannet_num_frames
+    from ..models.trainer import segmentation_trainer
+    from ..pipelines.diarization import precision_scope
+    from ..utils.checkpoint import tree_leaves
+
+    cfg = PyanNetConfig(**SLIM_PYANNET)
+    params = pyannet_tree(PyanNet(cfg))
+    batch = batch or 2 * mesh.world_size
+    rng = np.random.default_rng(seed)
+    frames = pyannet_num_frames(num_samples, cfg)
+    waveforms = rng.normal(size=(batch, num_samples)).astype(np.float32)
+    labels = (rng.uniform(size=(batch, frames, cfg.num_classes)) > 0.5).astype(np.float32)
+    with precision_scope("highest"):
+        dp = segmentation_trainer(params, cfg, mesh=mesh)
+        one = segmentation_trainer(params, cfg, device=mesh.device)
+        loss, loss_one = dp.step(waveforms, labels), one.step(waveforms, labels)
+    grads = [(p.grad, q.grad) for p, q in zip(tree_leaves(dp.params), tree_leaves(one.params))]
+    err = max(float((g - h).abs().max()) for g, h in grads)
+    within = all(bool(torch.isclose(g, h, rtol=rtol, atol=atol).all()) for g, h in grads)
+    report = {
+        "batch": [batch, num_samples],
+        "rows": len(batch_spec(mesh, batch)),
+        "loss": loss,
+        "loss_single": loss_one,
+        "grad_max_abs_err": err,
+        "grads_within": within,
+        "step": dp.state.step,
+        "params_digest": float(sum(p.detach().double().sum() for p in tree_leaves(dp.params))),
+    }
+    if not (np.isfinite(loss) and within and np.isclose(loss, loss_one, rtol=rtol, atol=atol)):
+        raise AssertionError(f"case 2: the data-parallel step diverged: {report}")
     return report
 
 
@@ -238,6 +299,9 @@ def dryrun_multichip(
         for case in ("1", "1b", "1c"):
             if r[case] != reports[0][case]:
                 raise AssertionError(f"rank {r['rank']} case {case} differs from rank 0")
+        for key in ("loss", "params_digest"):
+            if r["2"][key] != reports[0]["2"][key]:
+                raise AssertionError(f"rank {r['rank']} case 2: {key} differs from rank 0")
     return reports
 
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 import time
 from typing import Dict, Optional, Union
 
@@ -100,23 +101,45 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+# the TF32 flags are process-global: threads inside a "highest" scope share
+# one entry count, the first in saves and clears the flags, the last out
+# restores them
+_TF32_LOCK = threading.Lock()
+_tf32_scope = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def precision_scope(precision: str):
     """``"highest"``: float32 matmuls and cuDNN convolutions/RNNs in full
     float32 (TF32 off) for the duration, flags restored afterwards.
-    ``"default"``: PyTorch's own settings (cuDNN uses TF32 for float32)."""
+    ``"default"``: PyTorch's own settings (cuDNN uses TF32 for float32).
+
+    Threads may hold "highest" scopes at once (the server runs requests on
+    threads): the flags stay off until the last of them leaves."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if precision == "default":
         yield
         return
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    with _TF32_LOCK:
+        if _tf32_scope["depth"] == 0:
+            _tf32_scope["saved"] = (
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+            )
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_scope["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _TF32_LOCK:
+            _tf32_scope["depth"] -= 1
+            if _tf32_scope["depth"] == 0:
+                (
+                    torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                ) = _tf32_scope["saved"]
 
 
 def prepare_device(device: torch.device, frontend_cfg) -> None:

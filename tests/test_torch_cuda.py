@@ -278,6 +278,43 @@ def test_asp_kernel_rejects_attention_above_its_limit(cuda, dtype):
     assert (asp_cuda.asp_pool.float32_launches, asp_cuda.asp_pool.bfloat16_launches) == before
 
 
+# the ECAPA training step's shape (32 rows of 300 frames, A 128, C 3072),
+# and a small one with holes in the mask
+_ASP_GRAD_CASES = [(32, 128, 3072, 300, False), (4, 16, 128, 101, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,A,C,T,holes", _ASP_GRAD_CASES)
+def test_asp_backward_matches_autograd_through_plain(cuda, B, A, C, T, holes):
+    """Where autograd records it, the float32 kernel launch is a node whose
+    backward (``asp_pool_backward``, plain torch ops) equals autograd
+    through ``asp_pool_plain`` on the same inputs: each gradient within
+    1e-4 of its largest element, the bias's (0 in exact arithmetic: the
+    softmax cancels it) below 1e-3 of the weight's. Under inference_mode
+    the launch records nothing."""
+    inputs = [torch.from_numpy(v).to(cuda) for v in _asp_inputs(B, A, C, T, seed=11, holes=holes)]
+    mask = inputs.pop()
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = asp_cuda.asp_pool.float32_launches
+    mean, std = asp_cuda.asp_pool(*leaves, mask)
+    assert asp_cuda.asp_pool.float32_launches == before + 1
+    assert mean.grad_fn is not None and std.grad_fn is not None
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g_mean = torch.randn(mean.shape, generator=gen, device=cuda)
+    g_std = torch.randn(std.shape, generator=gen, device=cuda)
+    got = torch.autograd.grad((mean * g_mean + std * g_std).sum(), leaves)
+    ref = [t.clone().requires_grad_() for t in inputs]
+    want_mean, want_std = asp_cuda.asp_pool_plain(*ref, mask)
+    want = torch.autograd.grad((want_mean * g_mean + want_std * g_std).sum(), ref)
+    for name, g, h in zip(("x", "a_tanh", "w"), got[:3], want[:3]):
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-4 * float(h.abs().max()), msg=name)
+    bound = 1e-3 * float(want[2].abs().max())
+    assert float(got[3].abs().max()) <= bound and float(want[3].abs().max()) <= bound
+    with torch.inference_mode():
+        mean, _ = asp_cuda.asp_pool(*leaves, mask)
+    assert mean.grad_fn is None and asp_cuda.asp_pool.float32_launches == before + 2
+
+
 def _linkage_rows(kind, T, seed, d=192):
     """(embt (T, d), L2-normalised but "ties", tvalid (T,)) for the merge-loop kernel:
     blobs around 5 centres with 10 % of the rows invalid (tight: 0.0125 of

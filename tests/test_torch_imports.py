@@ -98,6 +98,8 @@ ENTRY_POINT_MODULES = (
     "clustering.spectral",
     "metrics.der",
     "models.ingest",
+    "models.trainer",
+    "models.training",
     "parallel.dryrun",
     "parallel.longform",
     "parallel.mesh",
@@ -106,6 +108,8 @@ ENTRY_POINT_MODULES = (
     "pipelines.segmentation",
     "pipelines.streaming",
     "runtime.native_bindings",
+    "runtime.server",
+    "utils.checkpoint",
     "utils.debug_dump",
     "utils.flops",
     "utils.instrumented",
@@ -183,6 +187,23 @@ cli.SpeakerDiarizationPipeline = lambda **kw: SpeakerDiarizationPipeline(cfg, **
 out = io.StringIO()
 with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     assert cli.main([path, "--device", "cpu"]) == 0
+from {PORT}.models.convert import pyannet_tree
+from {PORT}.models.pyannet import PyanNet
+from {PORT}.models.trainer import segmentation_trainer
+from {PORT}.runtime import server as srv
+import json, threading, urllib.request
+tr = segmentation_trainer(pyannet_tree(PyanNet(small["pyannet_cfg"])), small["pyannet_cfg"], device="cpu")
+frames = pyannet_num_frames(4000, small["pyannet_cfg"])
+assert np.isfinite(tr.step(np.stack([wave[:4000]] * 2), np.ones((2, frames, 3), np.float32)))
+ckpt_dir = tempfile.mkdtemp()
+tr.save_checkpoint(ckpt_dir)
+assert tr.restore_checkpoint(ckpt_dir) == 1
+server = srv.serve(srv.DiarizationService(pipe), port=0)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{{server.server_address[1]}}"
+body = json.load(urllib.request.urlopen(urllib.request.Request(url + "/diarize", data=open(path, "rb").read())))
+server.shutdown()
+assert body["audio_seconds"] == 2.5
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {FORBIDDEN!r})
 print("ok", len(seg.turns()), emb.shape, out.getvalue().count("Speaker_"))
 """
