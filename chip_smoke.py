@@ -130,19 +130,29 @@ Phases, each a JSON line on stdout:
      its serial ones (turns and embeddings: threads share
      precision_scope), an HTTP stream equal to StreamingDiarizer fed
      directly, and the error answers (404, 413, 400, 429, health counts);
- 15. training: PIT-BCE on the default PyanNet (32 x 80 000) and
+ 15. server_mesh: runtime/server.py over a mesh (--mesh): one NCCL rank,
+     the default pipeline behind MeshControl beside the mesh-less service,
+     /diarize JSON and RTTM equal string for string, launches as phase
+     6's, each mesh dispatch and broadcast under sync debug mode "error",
+     walls in turns and four concurrent requests against their serial sum;
+     then two gloo ranks spawned on cuda:0, float32 "highest": served turns
+     equal a one-rank call's, an HTTP stream of 1 s feeds equal to
+     StreamingDiarizer fed directly (close == flush), four concurrent
+     requests with the stream equal serial ones, half of a request's
+     stage-2 batches on each rank, stop ending both with exit 0;
+ 16. training: PIT-BCE on the default PyanNet (32 x 80 000) and
      AAM-softmax on the default ECAPA-TDNN (32 x 300 x 80, 7205 classes),
      TF32 off: card against CPU (loss, gradients), ms a step, the float32
      ASP kernel once a forward with its autograd backward against the
      plain version's, every trunk parameter's gradient, the BatchNorm
      statistics moved; deterministic resume bit-equal; the data-parallel
      step (NCCL world 1; two gloo ranks on cuda:0) equal to one process;
- 16. sinc_conv: the SincNet conv's polyphase and strided forms on one
+ 17. sinc_conv: the SincNet conv's polyphase and strided forms on one
      (32, 80 000) batch, TF32 off and on: device ms, the largest
      difference between the forms and from the CPU, the bound;
- 17. each phase's host wall seconds; the kernel summary line (launches:
+ 18. each phase's host wall seconds; the kernel summary line (launches:
      float32 ASP's from phase 7, the others' from phase 6, each plus
-     phases 8-15's, the spawned ranks' included), the nvidia-smi line, and
+     phases 8-16's, the spawned ranks' included), the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -3294,6 +3304,287 @@ def server_phase(torch, counters):
     return totals
 
 
+def strict_send(torch, control):
+    """From here on every broadcast of ``control`` (a runtime/server.py
+    ``MeshControl``) runs under sync debug mode "error", as
+    ``strict_dispatch`` does for a pipeline's dispatch."""
+    send = control.send
+
+    def strict(*args, **kwargs):
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return send(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+
+    control.send = strict
+    return control
+
+
+def mesh_clips():
+    """The 59, 30, 12.3 and 45 s requests of the server phases."""
+    clip = synth_clip(59.0, seed=0, quantize=True)
+    return [clip[: int(s * 16000)] for s in (59.0, 30.0, 12.3, 45.0)]
+
+
+def served_turns(url, body):
+    """The JSON turns of a /diarize of ``body``, which must answer 200."""
+    status, got = http_post(f"{url}/diarize", body)
+    check(status == 200, f"server_mesh: /diarize answered {status}: {got}")
+    return got["turns"]
+
+
+def http_stream(url, blocks, emit_every=8):
+    """An HTTP stream of ``blocks`` (int16 feeds): each feed's turns (None
+    where it emitted nothing), then the close's."""
+    sid = http_post(f"{url}/stream/open?emit_every={emit_every}")[1]["stream_id"]
+    emits = []
+    for block in blocks:
+        pcm = np.round(block * 32768.0).astype("<i2").tobytes()
+        status, got = http_post(f"{url}/stream/feed?id={sid}", pcm)
+        check(status == 200, f"server_mesh: stream feed answered {status}: {got}")
+        emits.append(got["turns"])
+    status, final = http_post(f"{url}/stream/close?id={sid}")
+    check(status == 200, f"server_mesh: stream close answered {status}: {final}")
+    return emits, final["turns"]
+
+
+def server_mesh_rank(mesh, ckpt):
+    """One of two gloo ranks sharing cuda:0 in ``server_mesh_phase`` (b):
+    the float32 "highest" pipeline on the mesh, each dispatch's kernel
+    launches kept. A follower runs ``follow``; rank 0 serves and holds the
+    served answers against direct calls of a one-rank pipeline on the same
+    card, serial and concurrent, then sends ``stop``."""
+    import torch
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import load_checkpoint
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.streaming import (
+        StreamingDiarizer,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import server as srv
+
+    f32 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    params = load_checkpoint(ckpt)
+    start = dryrun.kernel_launches()
+    pipe = SpeakerDiarizationPipeline(f32, params=params, precision="highest", mesh=mesh)
+    dispatches = []
+    launch = pipe._dispatch
+
+    def recording(*args, **kwargs):
+        before = dryrun.kernel_launches()
+        out = launch(*args, **kwargs)
+        dispatches.append(dryrun._since(before))
+        return out
+
+    pipe._dispatch = recording
+    control = srv.MeshControl(mesh, timeout=120.0)
+    if mesh.rank:
+        out = srv.follow(pipe, control)
+        return {**out, "dispatch_launches": dispatches, "launches": dryrun._since(start)}
+    single = SpeakerDiarizationPipeline(f32, params=params, precision="highest", device=mesh.device)
+    clips = mesh_clips()
+    bodies = [wav_bytes(c) for c in clips]
+    direct = [srv._turns_json(single(c)) for c in clips]
+    blocks = np.array_split(clips[0], 59)
+    stream = StreamingDiarizer(single, emit_every=8)
+    direct_emits = []
+    for block in blocks:
+        ann = stream.feed(block)
+        direct_emits.append(None if ann is None else srv._turns_json(ann))
+    direct_final = srv._turns_json(stream.flush())
+    service = srv.DiarizationService(pipe, control=control)
+    report = {}
+    with served(service) as url:
+        served_turns(url, bodies[0])  # warm: the mesh pipeline's first request
+        serial_ms, serial = [], []
+        for b in bodies:
+            t0 = time.perf_counter()
+            serial.append(served_turns(url, b))
+            serial_ms.append((time.perf_counter() - t0) * 1e3)
+        check(serial == direct, "server_mesh gloo: served turns differ from the one-rank call's")
+        single_ms = [timed(torch, lambda c=c: single(c))[1] for c in clips]
+        emits, final = http_stream(url, blocks)
+        check(emits == direct_emits, "server_mesh gloo: the stream's emissions differ")
+        check(final == direct_final, "server_mesh gloo: the stream's close differs from the flush")
+        fns = [lambda b=b: served_turns(url, b) for b in bodies]
+        fns.append(lambda: http_stream(url, blocks))
+        answers, concurrent_ms = concurrently(fns)
+        check(answers[:4] == serial, "server_mesh gloo: a concurrent request differs from serial")
+        check(answers[4] == (emits, final), "server_mesh gloo: the interleaved stream differs")
+        report.update(
+            {
+                "turns": [len(t) for t in serial],
+                "served_equal_one_rank": True,
+                "stream_equal_flush": True,
+                "concurrent_equal_serial": True,
+                "audio_s": [len(c) / 16000 for c in clips],
+                "served_wall_ms": serial_ms,
+                "one_rank_direct_ms": single_ms,
+                "concurrent_with_stream_wall_ms": concurrent_ms,
+                "stream_feeds": len(blocks),
+            }
+        )
+    service.close()
+    report["ops"] = dict(control.ops)
+    return {**report, "dispatch_launches": dispatches, "launches": dryrun._since(start)}
+
+
+def server_mesh_phase(torch, counters):
+    """The server over a mesh (runtime/server.py ``--mesh``) at full width.
+    (a) One NCCL rank on the card: the default pipeline on the mesh behind
+    ``MeshControl`` and the mesh-less service, side by side: /diarize of the
+    59 s clip (JSON and RTTM) equal string for string, launches a request
+    as the main path's, each mesh dispatch and broadcast under sync debug
+    mode "error" after the first; walls in turns (mesh-less, mesh, mesh,
+    mesh-less), and four concurrent requests (59, 30, 12.3 and 45 s) on the
+    mesh against their serial sum. (b) Two gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one card), spawned, float32 at precision
+    "highest" (``server_mesh_rank``): served turns equal a one-rank call's,
+    the HTTP stream (1 s feeds) equals ``StreamingDiarizer`` fed directly
+    and its close the flush, the four requests and the stream at once
+    equal serial ones, each rank runs half of a 59 s request's stage-2
+    batches, and ``stop`` ends both ranks with exit 0 (spawn returns).
+    Returns each kernel's launches over the phase, both ranks' included."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import (
+        params_to_jax,
+        save_checkpoint,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import _cuda_lib
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.mesh import make_mesh
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import native_bindings
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.runtime import server as srv
+
+    def counts():
+        return {name: getattr(k, attr) for name, (k, attr, _) in counters.items()}
+
+    totals = {name: 0 for name in counters}
+    start = counts()
+    # the ranks load what the parent built: two ranks would race nvcc and g++
+    _cuda_lib.build()
+    native_bindings.build()
+    clips = mesh_clips()
+    bodies = [wav_bytes(c) for c in clips]
+    report = {"server_mesh": "runtime/server.py --mesh"}
+
+    # (a) world size 1, NCCL
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}", world_size=1, rank=0
+    )
+    try:
+        mesh = make_mesh()
+        plain = SpeakerDiarizationPipeline(seed=0)
+        on_mesh = srv.build_pipeline(mesh=mesh)
+        control = srv.MeshControl(mesh)
+        plain_service = srv.DiarizationService(plain)
+        mesh_service = srv.DiarizationService(on_mesh, control=control)
+        expected = per_request_launches(on_mesh, clips[0], counters)
+        with served(plain_service) as plain_url, served(mesh_service) as mesh_url:
+            want = http_post(f"{plain_url}/diarize", bodies[0])[1]
+            http_post(f"{mesh_url}/diarize", bodies[0])  # the first: NCCL's communicator
+            strict_dispatch(torch, on_mesh)
+            strict_send(torch, control)
+            walls = {"meshless": [], "mesh": []}
+            for which in ("meshless", "mesh", "mesh", "meshless") * 2:
+                url = mesh_url if which == "mesh" else plain_url
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                status, got = http_post(f"{url}/diarize", bodies[0])
+                walls[which].append((time.perf_counter() - t0) * 1e3)
+                check(status == 200, f"server_mesh nccl: /diarize answered {status}: {got}")
+                check(got["turns"] == want["turns"], f"server_mesh nccl: {which} turns differ")
+                launched = {n: c - before[n] for n, c in counts().items()}
+                check(launched == expected, f"server_mesh nccl: {which} launched {launched}")
+            rttm = [http_post(f"{u}/diarize?format=rttm", bodies[0])[1] for u in (plain_url, mesh_url)]
+            check(rttm[0] == rttm[1], "server_mesh nccl: the RTTM differs from the mesh-less one")
+            # the debug mode is the process's: a concurrent request's collect
+            # (which waits for the card) would raise under another's dispatch
+            del on_mesh._dispatch, on_mesh._run_range, control.send
+            t0 = time.perf_counter()
+            serial = [served_turns(mesh_url, b) for b in bodies]
+            serial_ms = (time.perf_counter() - t0) * 1e3
+            answers, concurrent_ms = concurrently(
+                [lambda b=b: served_turns(mesh_url, b) for b in bodies]
+            )
+            check(answers == serial, "server_mesh nccl: a concurrent request differs from serial")
+            health = json.load(urllib.request.urlopen(f"{mesh_url}/health"))
+        mesh_service.close()
+        report["nccl_world_1"] = {
+            "turns": len(want["turns"]),
+            "json_equal_meshless": True,
+            "rttm_equal_meshless": True,
+            "dispatch_sync_debug": "error",
+            "request_wall_ms": walls,
+            "concurrent": {
+                "audio_s": [len(c) / 16000 for c in clips],
+                "wall_ms": concurrent_ms,
+                "serial_sum_ms": serial_ms,
+            },
+            "health": health,
+            "ops": dict(control.ops),
+        }
+        del plain, on_mesh, plain_service, mesh_service
+    finally:
+        dist.destroy_process_group()
+    totals = {n: c - start[n] for n, c in counts().items()}
+
+    # (b) world size 2, gloo, both ranks on cuda:0
+    f32 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    tmp = tempfile.mkdtemp()
+    try:
+        source = SpeakerDiarizationPipeline(f32, seed=0, precision="highest")
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, params_to_jax(source.segmentation_model, source.embedding_model))
+        del source
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(server_mesh_rank, 2, ckpt, device="cuda", share_card=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rank0, follower = ranks
+    half = expected["pack_frames"] // 2  # a rank's block of a 59 s request's batches
+    for r in ranks:
+        for name, n in r["launches"].items():
+            totals[name] += n
+        first = r["dispatch_launches"][0]
+        check(
+            first["pack_frames"] == first["asp_pool_float32"] == half and first["linkage"] == 1,
+            f"server_mesh gloo: a rank launched {first} in the 59 s request",
+        )
+    ops = {k: v for k, v in follower["ops"].items() if k != "heartbeat"}
+    check(
+        ops == {k: v for k, v in rank0["ops"].items() if k != "heartbeat"} and follower["errors"] == 0,
+        f"server_mesh gloo: the follower received {follower['ops']}, rank 0 sent {rank0['ops']}",
+    )
+    report["gloo_world_2_shared_card"] = {
+        **{k: v for k, v in rank0.items() if k not in ("dispatch_launches", "launches")},
+        "first_request_launches_a_rank": [r["dispatch_launches"][0] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+        "follower_errors": follower["errors"],
+        "spawn_wall_s": wall_s,
+    }
+    report["launches"] = totals
+    emit(report)
+    return totals
+
+
 def grads_of(torch, params):
     """{dot-joined key: a CPU copy of its gradient} of a parameter tree."""
     from pyannote_audio_speaker_diarization_cpp_tpu_torch.models.convert import flatten_pytree
@@ -3697,6 +3988,7 @@ def main() -> int:
         longform_phase,
         multirank_phase,
         server_phase,
+        server_mesh_phase,
         training_phase,
     ):
         for name, n in run(phase, counters).items():

@@ -4,8 +4,10 @@ host clustering) on an ephemeral port. The same WAV gives equal JSON turns
 and RTTM, an HTTP stream equal turns, and the limit, TTL, 413, 404 and 503
 cases the same answers. The port alone: a malformed integer query answers
 400 (the JAX server drops the connection on /stream/open), a session whose
-flush raises is still closed, concurrent requests equal serial ones, and
-``precision_scope`` keeps TF32 off until the last thread leaves it."""
+flush raises is still closed, concurrent requests equal serial ones,
+``precision_scope`` keeps TF32 off until the last thread leaves it, and
+``--mesh`` builds the pipeline on a ``DataMesh`` or exits non-zero when its
+group does not form (tests/test_torch_server_mesh.py serves over one)."""
 
 import contextlib
 import http.client
@@ -278,20 +280,55 @@ def test_precision_scope_keeps_tf32_off_until_the_last_thread_leaves():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def test_mesh_flag_is_accepted_and_changes_nothing(monkeypatch):
-    """``--mesh`` parses, as the JAX CLI's does, and builds the pipeline it
-    would build without it."""
+def test_mesh_flag_builds_the_pipeline_on_a_data_mesh(monkeypatch):
+    """Under torchrun's variables ``--mesh`` joins the group (gloo with
+    ``--device cpu``, here of one rank) and builds the pipeline on its
+    ``DataMesh``; without the flag the pipeline gets the device and no mesh.
+    The group is gone afterwards."""
+    import torch.distributed as dist
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel.mesh import DataMesh
+
     built = []
 
     class Built(Exception):
         pass
 
-    def build(*args):
-        built.append(args)
+    def build(*args, **kwargs):
+        built.append((args, kwargs))
         raise Built
 
     monkeypatch.setattr(tserver, "build_pipeline", build)
-    for argv in (["--device", "cpu"], ["--device", "cpu", "--mesh"]):
-        with pytest.raises(Built):
-            tserver.main(argv)
-    assert built == [(None, None, None, "cpu")] * 2
+    with pytest.raises(Built):
+        tserver.main(["--device", "cpu"])
+    assert built.pop() == ((None, None, None, "cpu"), {})
+    for name, value in dict(
+        RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+        MASTER_PORT=str(dryrun.free_port()),
+    ).items():
+        monkeypatch.setenv(name, value)
+    with pytest.raises(Built):
+        tserver.main(["--device", "cpu", "--mesh", "--seg-batch", "4"])
+    (args, kwargs), = built
+    mesh = kwargs["mesh"]
+    assert args == (None, 4, None) and isinstance(mesh, DataMesh)
+    assert (mesh.rank, mesh.world_size, mesh.backend, str(mesh.device)) == (0, 1, "gloo", "cpu")
+    assert not dist.is_initialized()
+
+
+def test_mesh_group_that_does_not_form_exits_nonzero(monkeypatch, capsys):
+    """Rank 0 of two, with no second rank: ``main`` gives up after
+    ``--mesh-timeout`` and returns 1; it never serves from one rank."""
+    import torch.distributed as dist
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.parallel import dryrun
+
+    monkeypatch.setattr(tserver, "build_pipeline", pytest.fail)
+    for name, value in dict(
+        RANK="0", WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dryrun.free_port())
+    ).items():
+        monkeypatch.setenv(name, value)
+    assert tserver.main(["--device", "cpu", "--mesh", "--mesh-timeout", "1"]) == 1
+    assert "the group did not form" in capsys.readouterr().err
+    assert not dist.is_initialized()
