@@ -45,6 +45,12 @@ Phases, each a JSON line on stdout:
      and the bf16 ASP kernel must launch 12 times per request (128 padded
      chunks x 3 speakers / 32), the float32 ASP kernel never, the linkage
      kernel once, and stage 3 must stay on the device (no embedding fetch);
+     one request with ``profile`` True (the dispatch waits for stages 1
+     and 2, the only waits lifted from sync debug mode "error"): the warm
+     request's turns and launches, the host spans segmentation, embedding
+     and fetch each > 0 and total their sum, printed beside the stages'
+     device ms; one with ``profile`` False again under "error",
+     ``embedding`` 0.0;
      one request with max_speakers must take the host route (one embedding
      fetch, no linkage launch);
      one more request with the pack and ASP inputs watched (pack_rows: kept
@@ -147,12 +153,26 @@ Phases, each a JSON line on stdout:
      plain version's, every trunk parameter's gradient, the BatchNorm
      statistics moved; deterministic resume bit-equal; the data-parallel
      step (NCCL world 1; two gloo ranks on cuda:0) equal to one process;
- 17. sinc_conv: the SincNet conv's polyphase and strided forms on one
+ 17. accuracy_loop: the JAX package's closed accuracy loop
+     (tests/test_accuracy_loop.py) on the card, through
+     tests/_torch_accuracy.py: PyanNet and ECAPA-TDNN at small widths
+     trained from their seeded inits on synthetic two-speaker tones
+     (PIT-BCE to a loss target, 150 AAM-softmax steps; deterministic
+     algorithms, so every run takes one trajectory), then the tiny1s
+     pipeline with those weights diarizing a composed 12 s conversation:
+     every JAX threshold must hold (PyanNet loss < 0.12, within > across +
+     0.05, DER < 0.25 with num_speakers=2, exactly 2 speakers); steps to
+     target, losses, separation, DER, labels, wall seconds of each part
+     (the host's making of the training batches apart), launches of each
+     part (log-mel and float32 ASP in training; pack, log-mel and bf16 ASP
+     in the diarization) and the card; one request without a bound (stage
+     3 on the device) reported only;
+ 18. sinc_conv: the SincNet conv's polyphase and strided forms on one
      (32, 80 000) batch, TF32 off and on: device ms, the largest
      difference between the forms and from the CPU, the bound;
- 18. each phase's host wall seconds; the kernel summary line (launches:
+ 19. each phase's host wall seconds; the kernel summary line (launches:
      float32 ASP's from phase 7, the others' from phase 6, each plus
-     phases 8-16's, the spawned ranks' included), the nvidia-smi line, and
+     phases 8-17's, the spawned ranks' included), the nvidia-smi line, and
      last {"ok": true, "device": {...}}.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -981,6 +1001,7 @@ def main_path_phase(torch, counters):
                 "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             }
         )
+    profiled_request(pipe, clip, turns_of(annotation), count, expected)
     totals = count()
     # one request with a speaker bound: the host route at full width (the
     # embeddings fetched, the host clusterer, post_cluster on the card), no
@@ -1036,6 +1057,56 @@ def main_path_phase(torch, counters):
     )
     profile_request(torch, pipe, clip)
     return totals, batches
+
+
+def profiled_request(pipe, clip, warm_turns, count, expected):
+    """One request with ``pipe.profile`` True (the dispatch waits for the
+    card after stages 1 and 2: the only host waits it makes by design,
+    lifted from the strict mode ``pipe`` runs under), then one with it
+    False again. Both must launch ``expected`` and give ``warm_turns``; the
+    profiled one must have every host span > 0 and ``total`` their sum, the
+    next one ``embedding`` 0.0."""
+    rows = []
+    for profile in (True, False):
+        pipe.profile = profile
+        before = count()
+        t0 = time.perf_counter()
+        try:
+            annotation = pipe(clip)
+        finally:
+            pipe.profile = False
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {name: n - before[name] for name, n in count().items()}
+        t = pipe.timings
+        spans = [t.segmentation, t.embedding, t.fetch, t.clustering]
+        check(launched == expected, f"profile={profile}: launches {launched}")
+        check(turns_of(annotation) == warm_turns, f"profile={profile}: turns differ")
+        if profile:
+            check(
+                min(spans[:3]) > 0 and t.total == sum(spans),
+                f"profiled request: host spans {spans}, total {t.total}",
+            )
+        else:
+            check(t.embedding == 0.0, f"profile off: a stale embedding span {t.embedding}")
+        rows.append(
+            {
+                "profile": profile,
+                "strict": True,
+                "wall_ms": wall_ms,
+                "host_s": dict(
+                    zip(("segmentation", "embedding", "fetch", "clustering"), spans),
+                    total=t.total,
+                ),
+                "device_ms": {
+                    "stage1": t.stage1_ms,
+                    "stage2": t.stage2_ms,
+                    "stage3": t.stage3_ms,
+                },
+                "turns_equal_warm": True,
+                "launches": launched,
+            }
+        )
+    emit({"profiled_request": rows})
 
 
 def watched_request(torch, pipe, clip):
@@ -3910,9 +3981,62 @@ def training_phase(torch, counters):
     return totals
 
 
+def accuracy_loop_phase(torch, counters):
+    """The closed accuracy loop of the JAX package's
+    tests/test_accuracy_loop.py on the card (tests/_torch_accuracy.py):
+    PyanNet (small widths) trained with PIT-BCE from its seeded init until
+    its loss is below 0.06 after step 300, ECAPA-TDNN (small widths) 150
+    AAM-softmax steps with a 2-class head on the front-end's features, both
+    at precision "highest" under deterministic algorithms (``main`` sets
+    the cuBLAS workspace this needs); the two speakers' embeddings must
+    separate; the tiny1s pipeline with the trained weights at the port's
+    defaults diarizes a composed 12 s conversation with ``num_speakers=2``
+    (the host clustering route) at DER < 0.25 with exactly 2 speakers. One
+    more request without a bound (stage 3 and its merge-loop kernel on the
+    card) is reported only. Emits steps, losses, separation, DER, labels,
+    wall seconds of each part (and the host's seconds making the training
+    batches), the kernels launched in each part and the card; returns each
+    kernel's launches over the phase."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _torch_accuracy import failures, run_accuracy_loop
+
+    for kernel, attr, _ in counters.values():
+        setattr(kernel, attr, 0)
+    parts = {}
+
+    def mark(part):
+        parts[part] = {name: getattr(k, attr) for name, (k, attr, _) in counters.items()}
+
+    report = run_accuracy_loop(mark=mark)
+    previous = dict.fromkeys(counters, 0)
+    launches = {}
+    for part, now in parts.items():
+        launches[part] = {name: now[name] - previous[name] for name in now}
+        previous = now
+    emit(
+        {
+            "accuracy_loop": report,
+            "launches": launches,
+            "failed_thresholds": failures(report),
+            "nvidia_smi": nvidia_smi_line(),
+        }
+    )
+    check(not failures(report), f"accuracy loop: {failures(report)}")
+    training, diarization = launches["training"], launches["diarization"]
+    check(
+        training["log_mel"] > 0 and training["asp_pool_float32"] > 0,
+        f"accuracy loop: training launched {training}",
+    )
+    check(
+        min(diarization[k] for k in ("pack_frames", "log_mel", "asp_pool")) > 0,
+        f"accuracy loop: the diarization launched {diarization}",
+    )
+    return previous
+
+
 def main() -> int:
-    # the training phase's resume check runs cuBLAS in deterministic mode,
-    # which needs this set before the first cuBLAS call
+    # the training phase's resume check and the accuracy loop run cuBLAS in
+    # deterministic mode, which needs this set before the first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
@@ -3990,6 +4114,7 @@ def main() -> int:
         server_phase,
         server_mesh_phase,
         training_phase,
+        accuracy_loop_phase,
     ):
         for name, n in run(phase, counters).items():
             totals[name] += n

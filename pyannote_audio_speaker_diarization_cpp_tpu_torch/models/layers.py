@@ -97,13 +97,15 @@ def conv1d_nhc(
     dilation: int = 1,
     padding="same",
     pad_mode: str = "zeros",
+    stride: int = 1,
 ) -> torch.Tensor:
     """(B, T, C_in) -> (B, T', C_out): conv1d in channels-last layout, with
     the (C_out, C_in, k) weight. The activations go to cuDNN as a
     channels-last (B, C, T, 1) conv2d over x's own memory, and the output
     comes back as a (B, T', C_out) view of the channels-last result.
     ``padding``: "same" ((k-1)*dilation/2 a side, reflected when
-    ``pad_mode`` is "reflect") or a number of zeros a side."""
+    ``pad_mode`` is "reflect") or a number of zeros a side; ``stride``
+    along T."""
     k = weight.shape[-1]
     if padding == "same":
         pad = (k - 1) * dilation // 2
@@ -120,7 +122,7 @@ def conv1d_nhc(
     x4 = x.as_strided((B, C, T, 1), (T * C, 1, C, C))
     w = weight.permute(0, 2, 1).contiguous()  # (O, k, C): a view when k = 1
     w4 = w.as_strided((O, C, k, 1), (k * C, 1, C, C))
-    out = F.conv2d(x4, w4, bias, padding=(pad, 0), dilation=(dilation, 1))
+    out = F.conv2d(x4, w4, bias, stride=(stride, 1), padding=(pad, 0), dilation=(dilation, 1))
     return out.squeeze(-1).transpose(1, 2)
 
 

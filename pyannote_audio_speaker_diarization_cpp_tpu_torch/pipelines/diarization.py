@@ -26,7 +26,8 @@ The device work of a request is launched asynchronously on the current
 stream, and the host never waits for the card while it launches it
 (``_dispatch``): every host array reaches the card from pinned memory
 behind the queued work, and the one-time set-up (the kernels' build, the
-front-end's tables) happens in ``__init__``. On the device route the host
+front-end's tables) happens in ``__init__``; only ``profile=True`` makes it
+wait, at the ends of stages 1 and 2. On the device route the host
 waits once, for the activations; on the host route once for the
 clustering inputs and once for the activations. ``map`` launches every
 request before it collects the first, so the card runs them back to back
@@ -307,28 +308,47 @@ def load_waveform(
 class StageTimings:
     """Where one request's time went.
 
-    Host wall seconds: ``segmentation`` (host prep + launching the device
-    stages; they run asynchronously, so their host time is in here),
-    ``fetch`` (waiting for the device and copying what the host needs: the
-    activations on the device route, the clustering inputs on the host
-    route), ``clustering`` (the decode; on the host route also host
-    clustering and the device post-step).
+    Host wall seconds, in the JAX package's fields. Default
+    (``pipeline.profile`` False: the dispatch makes no host wait):
+    ``segmentation`` is the host prep and the launch of every device stage
+    (they run asynchronously, so their host time is in here);
+    ``embedding`` is 0 (not measured apart); ``fetch`` is the wait for the
+    device and the copy of what the host needs (the activations on the
+    device route, the clustering inputs on the host route);
+    ``clustering`` is the decode (on the host route also host clustering
+    and the device post-step).
+
+    With ``pipeline.profile`` True the dispatch waits for the card at the
+    stage boundaries: ``segmentation`` ends when stage 1 has run on the
+    device, ``embedding`` spans from there until stage 2 has run, and
+    stage 3 is launched after that, so ``fetch`` holds what is left of it
+    besides the copy (as in the JAX package, where ``fetch`` holds what is
+    left of the device work). On the CPU, where the stages run inside their
+    launch, each span is the host time of its stage. The host's launch of
+    device stage 3 falls in no span.
+
+    ``total`` is the sum of the four host spans.
 
     Device milliseconds from CUDA events (0 on the CPU, and 0 for a stage
     the request did not run): ``stage1_ms``, ``stage2_ms``, ``stage3_ms``
     (device stage 3) and ``post_ms`` (the host route's post-clustering
-    aggregation). The JAX package's ``embedding`` host span has no
-    counterpart: the dispatch never waits for stage 2, so ``stage2_ms`` is
-    its time.
+    aggregation). With ``profile`` True, ``stage2_ms`` and ``stage3_ms``
+    also hold the card's idle time while the host, back from its wait,
+    launches the stage.
     """
 
     segmentation: float = 0.0
+    embedding: float = 0.0
     fetch: float = 0.0
     clustering: float = 0.0
     stage1_ms: float = 0.0
     stage2_ms: float = 0.0
     stage3_ms: float = 0.0
     post_ms: float = 0.0
+
+    @property
+    def total(self) -> float:
+        return self.segmentation + self.embedding + self.fetch + self.clustering
 
 
 class SpeakerDiarizationPipeline:
@@ -358,6 +378,11 @@ class SpeakerDiarizationPipeline:
     ``ecapa_layout``: how the ECAPA trunk holds its activations in every
     stage-2 entry point — "nch" (the default, as in the JAX package), "nhc"
     or "gemm" (models/ecapa.py); same weights, same state dict.
+
+    ``profile``: True makes ``timings.segmentation`` and
+    ``timings.embedding`` per-stage spans (StageTimings), at the cost of
+    two host waits for the card in every dispatch; callers may flip the
+    attribute between requests.
 
     ``mesh``: a parallel.mesh.DataMesh; every rank of its group then calls
     the pipeline on the same request (SPMD), and the pipeline runs on the
@@ -398,6 +423,7 @@ class SpeakerDiarizationPipeline:
         k_max: int = 8,
         ecapa_layout: str = "nch",
         mesh=None,
+        profile: bool = False,
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
@@ -470,6 +496,7 @@ class SpeakerDiarizationPipeline:
         # (segment/segment.py:103-108). False lets the zero padding reach
         # the norms (up to ~0.008 sigmoid deviation on the orphan's frames).
         self.exact_orphan = exact_orphan
+        self.profile = profile
         self.timings = StageTimings()
         self._plans: Dict = {}  # aggregation plans by (kind, chunk count)
         seg_cfg = config.segmentation
@@ -852,8 +879,9 @@ class SpeakerDiarizationPipeline:
         max_speakers=None,
     ):
         """Host prep + the device stages (stage 3 too for an eligible
-        request), launched without waiting; returns the pending state
-        _collect needs."""
+        request), launched without waiting (with ``self.profile``, waiting
+        for stage 1 and then stage 2 to run, StageTimings); returns the
+        pending state _collect needs."""
         timings = timings if timings is not None else self.timings
         seg_cfg = self.config.segmentation
         waveform = load_waveform(audio, sample_rate, seg_cfg.sample_rate)
@@ -874,9 +902,18 @@ class SpeakerDiarizationPipeline:
         )
         if events:
             events[1].record()
+        if self.profile:
+            self._wait(events, 1)
+            timings.segmentation = time.perf_counter() - t0
+            t0 = time.perf_counter()
         emb, too_short = self._stage2(chunks, chosen)
         if events:
             events[2].record()
+        if self.profile:
+            self._wait(events, 2)
+            timings.embedding = time.perf_counter() - t0
+        else:
+            timings.embedding = 0.0
 
         # stage 3 on the device, right behind stage 2: the host then fetches
         # only the activations
@@ -898,7 +935,8 @@ class SpeakerDiarizationPipeline:
             events[3].record()
 
         real_plan = self._count_plan(num_chunks)
-        timings.segmentation = time.perf_counter() - t0
+        if not self.profile:
+            timings.segmentation = time.perf_counter() - t0
         return {
             "num_samples": num_samples,
             "num_chunks": num_chunks,
@@ -1029,6 +1067,21 @@ class SpeakerDiarizationPipeline:
         annotation = self._decode(pending, activations, num_clusters, count_h)
         timings.clustering = time.perf_counter() - t0
         return annotation
+
+    @staticmethod
+    def _wait(events, i: int) -> None:
+        """Wait for the card to pass ``events[i]`` (a profiled dispatch's
+        stage boundary; nothing on the CPU). These are the only host waits
+        a dispatch makes by design, so a sync debug mode set around the
+        dispatch is lifted for them alone."""
+        if not events:
+            return
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            events[i].synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
 
     @staticmethod
     def _read_events(pending, timings: StageTimings) -> None:

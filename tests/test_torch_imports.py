@@ -1,7 +1,7 @@
 """The port must run where JAX is not installed: no module of the port, and
-not chip_smoke.py, imports jax or the JAX package — checked by an AST scan
-and by importing (and running) the port in a process where those imports
-fail."""
+not chip_smoke.py or the test modules it imports (the accuracy loop),
+imports jax or the JAX package — checked by an AST scan and by importing
+(and running) the port in a process where those imports fail."""
 
 import ast
 import os
@@ -19,6 +19,9 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the accuracy loop chip_smoke.py runs on the card, and its configs
+    for name in ("_torch_accuracy.py", "_torch_cfg.py"):
+        yield os.path.join(REPO, "tests", name)
 
 
 def test_no_jax_imports_in_port_sources():
@@ -47,6 +50,8 @@ import {PORT} as port
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(info.name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import _torch_accuracy
 import numpy as np
 from {PORT}.config import DiarizationConfig, SegmentationConfig
 from {PORT}.models.ecapa import EcapaConfig

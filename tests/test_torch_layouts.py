@@ -106,6 +106,30 @@ def test_channels_last_pooling_hands_the_kernel_its_layout(params, features, lay
     assert a_tanh.stride(2) == 1 and a_tanh.stride(1) % 8 == 0 and a_tanh.stride(1) >= T
 
 
+@pytest.mark.parametrize(
+    "stride,dilation,padding,pad_mode",
+    [(1, 1, "same", "reflect"), (2, 1, "same", "zeros"), (3, 2, "same", "reflect"), (2, 1, 1, "zeros")],
+)
+def test_conv1d_nhc_matches_jax(stride, dilation, padding, pad_mode):
+    from pyannote_audio_speaker_diarization_cpp_tpu.models import layers as jlayers
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.models import layers as tlayers
+
+    rng = np.random.default_rng(stride * 10 + dilation)
+    x = rng.normal(size=(2, 37, 6)).astype(np.float32)
+    w = rng.normal(size=(5, 6, 3)).astype(np.float32)
+    b = rng.normal(size=(5,)).astype(np.float32)
+    want = jlayers.conv1d_nhc(
+        jnp.asarray(x), {"weight": jnp.asarray(w), "bias": jnp.asarray(b)}, stride, dilation,
+        padding, pad_mode, HIGHEST,
+    )
+    got = tlayers.conv1d_nhc(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), dilation, padding,
+        pad_mode, stride,
+    )
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
 def test_unknown_layout_raises():
     cfg = port_config(TINY1S_CFG)
     with pytest.raises(ValueError, match="ecapa_layout"):
