@@ -31,7 +31,9 @@ wait, at the ends of stages 1 and 2. On the device route the host
 waits once, for the activations; on the host route once for the
 clustering inputs and once for the activations. ``map`` launches every
 request before it collects the first, so the card runs them back to back
-while the host decodes.
+while the host decodes. Each request records its host spans (``dispatch``
+and ``collect`` with their stages, and the host's waits for the card) on
+its ``StageTimings``.
 
 Besides ``__call__`` and ``map``: ``warmup``; ``run_chunks``,
 ``run_chunks_device`` and ``stage2_internals`` (stages 1 and 2 on a chunk
@@ -48,10 +50,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -263,11 +266,21 @@ def stage3(
     return activations.to(torch.float16), res.hard, res.num_large
 
 
-def to_host(*tensors: torch.Tensor):
-    """Device tensors -> numpy arrays, with one wait for all of them."""
-    if any(t.device.type == "cuda" for t in tensors):
+def to_host(*tensors: torch.Tensor, timings: Optional[StageTimings] = None, parent=None):
+    """Device tensors -> numpy arrays, with one wait for all of them. With
+    ``timings``, the wait is recorded as the span ``<parent's name>.wait``
+    under the span at index ``parent``; it brackets the one stream
+    synchronize alone (near zero on the CPU, where there is none)."""
+    on_card = any(t.device.type == "cuda" for t in tensors)
+    if on_card:
         tensors = [t.to("cpu", non_blocking=True) for t in tensors]
-        torch.cuda.current_stream().synchronize()
+        stream = torch.cuda.current_stream()
+    if timings is not None:
+        wait = timings.begin(timings.spans[parent].name + ".wait", parent)
+    if on_card:
+        stream.synchronize()
+    if timings is not None:
+        timings.end(wait)
     return [t.numpy() for t in tensors]
 
 
@@ -304,6 +317,20 @@ def load_waveform(
     return waveform
 
 
+class Span(NamedTuple):
+    """One stretch of a request at a layer boundary. ``parent`` is the
+    index of the enclosing span in ``StageTimings.spans`` (None for a
+    root); ``start_ns`` and ``end_ns`` are ``time.perf_counter_ns()``
+    readings (``end_ns`` 0 while the span is open); ``counters`` holds what
+    the span counted, or None."""
+
+    name: str
+    parent: Optional[int]
+    start_ns: int
+    end_ns: int = 0
+    counters: Optional[Dict] = None
+
+
 @dataclasses.dataclass
 class StageTimings:
     """Where one request's time went.
@@ -329,6 +356,22 @@ class StageTimings:
 
     ``total`` is the sum of the four host spans.
 
+    ``request`` and ``spans``: the request's id (unique within its
+    pipeline) and its span record (``Span``), in the order the spans were
+    opened. ``_dispatch`` starts the record anew, so a reused StageTimings
+    holds one request's spans. The roots are ``dispatch`` (children
+    ``dispatch.prep``: load and host prep; ``dispatch.stage1``: the chunks
+    to the device and stage 1's launch; ``dispatch.stage2``;
+    ``dispatch.stage3``, when device stage 3 runs) and ``collect``
+    (``collect.fetch``: the first fetch and the embeddings' finish;
+    ``collect.cluster``: the host clusterer and the membership;
+    ``collect.post``: the post-clustering step and its fetch;
+    ``collect.decode``). ``collect.fetch.wait`` and ``collect.post.wait``
+    bracket the host's one wait for the card in each fetch. The ``collect``
+    root counts ``route``: "device", "host", or "device_then_host" when
+    device stage 3 ran but its result sent the request to the host
+    clusterer. With ``profile`` the stage spans hold the profile waits.
+
     Device milliseconds from CUDA events (0 on the CPU, and 0 for a stage
     the request did not run): ``stage1_ms``, ``stage2_ms``, ``stage3_ms``
     (device stage 3) and ``post_ms`` (the host route's post-clustering
@@ -345,10 +388,35 @@ class StageTimings:
     stage2_ms: float = 0.0
     stage3_ms: float = 0.0
     post_ms: float = 0.0
+    request: Optional[int] = None
+    spans: List[Span] = dataclasses.field(default_factory=list)
 
     @property
     def total(self) -> float:
         return self.segmentation + self.embedding + self.fetch + self.clustering
+
+    def restart(self, request: int) -> None:
+        """Start the span record of ``request`` anew."""
+        self.request = request
+        self.spans = []
+
+    def begin(self, name: str, parent: Optional[int] = None, at: Optional[int] = None) -> int:
+        """Open a span (at the clock reading ``at``, else now); returns its
+        index."""
+        self.spans.append(Span(name, parent, time.perf_counter_ns() if at is None else at))
+        return len(self.spans) - 1
+
+    def end(self, index: int, at: Optional[int] = None, **counters) -> int:
+        """Close the span at ``index`` (at the clock reading ``at``, else
+        now), with ``counters`` if given; returns the reading."""
+        now = time.perf_counter_ns() if at is None else at
+        name, parent, start, _, held = self.spans[index]
+        self.spans[index] = Span(name, parent, start, now, counters or held)
+        return now
+
+    def seconds(self, index: int) -> float:
+        span = self.spans[index]
+        return (span.end_ns - span.start_ns) * 1e-9
 
 
 class SpeakerDiarizationPipeline:
@@ -498,6 +566,7 @@ class SpeakerDiarizationPipeline:
         self.exact_orphan = exact_orphan
         self.profile = profile
         self.timings = StageTimings()
+        self._request_ids = itertools.count()
         self._plans: Dict = {}  # aggregation plans by (kind, chunk count)
         seg_cfg = config.segmentation
         self._min_num_frames = float(
@@ -788,17 +857,29 @@ class SpeakerDiarizationPipeline:
         num_speakers: Optional[int] = None,
         min_speakers: Optional[int] = None,
         max_speakers: Optional[int] = None,
+        timings: Optional[list] = None,
     ):
         """Diarize several recordings: launch every request's device work,
         then collect them in order, so request i's fetch and decode overlap
         the card's work on the requests after it. Returns one Annotation per
-        input, equal to ``self(audio)`` of each."""
+        input, equal to ``self(audio)`` of each. ``timings``: a list that
+        receives one StageTimings per request, in order; ``self.timings``
+        holds a copy of the last."""
+        records = []
         with precision_scope(self.precision):
             bounds = dict(
                 num_speakers=num_speakers, min_speakers=min_speakers, max_speakers=max_speakers
             )
-            pendings = [self._dispatch(a, sample_rate, **bounds) for a in audios]
-            return [self._collect(p, **bounds) for p in pendings]
+            pendings = []
+            for a in audios:
+                records.append(StageTimings())
+                pendings.append(self._dispatch(a, sample_rate, timings=records[-1], **bounds))
+            out = [self._collect(p, timings=t, **bounds) for p, t in zip(pendings, records)]
+        if records:
+            self.timings = dataclasses.replace(records[-1], spans=list(records[-1].spans))
+        if timings is not None:
+            timings.extend(records)
+        return out
 
     def warmup(self, max_audio_seconds: float = 60.0, num_clusters: int = 4):
         """Run one request for every chunk bucket up to ``max_audio_seconds``
@@ -883,14 +964,19 @@ class SpeakerDiarizationPipeline:
         for stage 1 and then stage 2 to run, StageTimings); returns the
         pending state _collect needs."""
         timings = timings if timings is not None else self.timings
+        request = next(self._request_ids)
+        timings.restart(request)
+        root = timings.begin("dispatch")
+        prep = timings.begin("dispatch.prep", root, at=timings.spans[root].start_ns)
         seg_cfg = self.config.segmentation
         waveform = load_waveform(audio, sample_rate, seg_cfg.sample_rate)
         num_samples = waveform.shape[0]
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         num_chunks, num_padded, wav_padded, valid_frames, valid_samples = self._prepare(
             waveform
         )
+        span = timings.begin("dispatch.stage1", root, at=timings.end(prep))
         events = self._events(4)
         if events:
             events[0].record()
@@ -904,22 +990,24 @@ class SpeakerDiarizationPipeline:
             events[1].record()
         if self.profile:
             self._wait(events, 1)
-            timings.segmentation = time.perf_counter() - t0
-            t0 = time.perf_counter()
+        at = timings.end(span)
+        if self.profile:
+            timings.segmentation = (at - t0) * 1e-9
+        span = timings.begin("dispatch.stage2", root, at=at)
         emb, too_short = self._stage2(chunks, chosen)
         if events:
             events[2].record()
         if self.profile:
             self._wait(events, 2)
-            timings.embedding = time.perf_counter() - t0
-        else:
-            timings.embedding = 0.0
+        timings.end(span)
+        timings.embedding = timings.seconds(span) if self.profile else 0.0
 
         # stage 3 on the device, right behind stage 2: the host then fetches
         # only the activations
         device_clu = None
         rows = num_padded * seg_cfg.num_speakers
         if self._device_clu_eligible(rows, num_speakers, min_speakers, max_speakers):
+            span = timings.begin("dispatch.stage3", root)
             dia_plan = self._diarization_plan(num_padded)
             activations, hard, num_large = stage3(
                 segmentations,
@@ -931,13 +1019,16 @@ class SpeakerDiarizationPipeline:
                 self._device_clu_key(),
             )
             device_clu = {"activations": activations, "hard": hard, "num_large": num_large}
+            timings.end(span)
         if events:
             events[3].record()
 
         real_plan = self._count_plan(num_chunks)
+        at = timings.end(root)
         if not self.profile:
-            timings.segmentation = time.perf_counter() - t0
+            timings.segmentation = (at - t0) * 1e-9
         return {
+            "request": request,
             "num_samples": num_samples,
             "num_chunks": num_chunks,
             "num_padded": num_padded,
@@ -971,6 +1062,9 @@ class SpeakerDiarizationPipeline:
         host, run the device post-step and decode. With ``dump`` every stage
         output is fetched and the host twin ``finalize`` runs stage 3."""
         timings = timings if timings is not None else self.timings
+        if timings.request != pending["request"]:
+            timings.restart(pending["request"])
+        root = timings.begin("collect")
         cfg = self.config
         seg_cfg = cfg.segmentation
         num_chunks = pending["num_chunks"]
@@ -980,22 +1074,26 @@ class SpeakerDiarizationPipeline:
         dc = pending.get("device_clu")
         bounds_given = any(b is not None for b in (num_speakers, min_speakers, max_speakers))
         if dc is not None and dump is None and not bounds_given:
-            t0 = time.perf_counter()
+            span = timings.begin("collect.fetch", root)
             act_h, num_large_h, count_h = to_host(
-                dc["activations"], dc["num_large"], pending["count_raw"]
+                dc["activations"], dc["num_large"], pending["count_raw"],
+                timings=timings, parent=span,
             )
-            timings.fetch = time.perf_counter() - t0
+            timings.end(span)
+            timings.fetch = timings.seconds(span)
             self._read_events(pending, timings)
             num_clusters = int(num_large_h)
             if 1 <= num_clusters <= self.k_max:
-                t0 = time.perf_counter()
+                span = timings.begin("collect.decode", root)
                 annotation = self._decode(pending, act_h.astype(np.float32), num_clusters, count_h)
-                timings.clustering = time.perf_counter() - t0
+                timings.end(root, route="device", at=timings.end(span))
+                timings.clustering = timings.seconds(span)
                 return annotation
             # no cluster (the host's dendrogram search must run) or more than
             # k_max: the host route below, from the still resident embeddings
 
-        t0 = time.perf_counter()
+        route = "host" if dc is None else "device_then_host"
+        span = timings.begin("collect.fetch", root)
         rows = num_chunks * seg_cfg.num_speakers
         to_fetch = [pending["emb"], pending["too_short"], pending["inactive"]]
         if dump is not None:
@@ -1004,12 +1102,13 @@ class SpeakerDiarizationPipeline:
                 pending["segmentations"][:num_chunks],
                 pending["binarized"][:num_chunks],
             ]
-        fetched = to_host(*to_fetch)
+        fetched = to_host(*to_fetch, timings=timings, parent=span)
         inactive_h = fetched[2][:num_chunks]
         embeddings = finalize_embeddings(
             fetched[0][:rows], fetched[1][:rows], num_chunks, seg_cfg.num_speakers
         )
-        timings.fetch = time.perf_counter() - t0
+        timings.end(span)
+        timings.fetch = timings.seconds(span)
         self._read_events(pending, timings)
 
         if dump is not None:
@@ -1018,7 +1117,7 @@ class SpeakerDiarizationPipeline:
             dump.dump("segmentations", fetched[4])
             dump.dump("binarized_segmentations", fetched[5])
             dump.dump("count", count)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             annotation = self.finalize(
                 fetched[4],
                 fetched[5],
@@ -1032,10 +1131,10 @@ class SpeakerDiarizationPipeline:
                 dump=dump,
                 inactive=inactive_h,
             )
-            timings.clustering = time.perf_counter() - t0
+            timings.clustering = (timings.end(root, route=route) - t0) * 1e-9
             return annotation
 
-        t0 = time.perf_counter()
+        cluster = timings.begin("collect.cluster", root)
         hard, _soft = self.clusterer(
             embeddings,
             num_clusters=num_speakers or cfg.num_speakers,
@@ -1049,6 +1148,7 @@ class SpeakerDiarizationPipeline:
         ci, si = np.nonzero(hard >= 0)
         membership[ci, si, hard[ci, si]] = True
 
+        span = timings.begin("collect.post", root, at=timings.end(cluster))
         post_events = self._events(2)
         if post_events:
             post_events[0].record()
@@ -1061,11 +1161,16 @@ class SpeakerDiarizationPipeline:
         )
         if post_events:
             post_events[1].record()
-        activations, count_h = to_host(activations_dev, pending["count_raw"])
+        activations, count_h = to_host(
+            activations_dev, pending["count_raw"], timings=timings, parent=span
+        )
         if post_events:
             timings.post_ms = post_events[0].elapsed_time(post_events[1])
+        span = timings.begin("collect.decode", root, at=timings.end(span))
         annotation = self._decode(pending, activations, num_clusters, count_h)
-        timings.clustering = time.perf_counter() - t0
+        at = timings.end(span)
+        timings.end(root, route=route, at=at)
+        timings.clustering = (at - timings.spans[cluster].start_ns) * 1e-9
         return annotation
 
     @staticmethod
