@@ -78,6 +78,7 @@ from ..ops import windows as win
 from ..ops.aggregate import aggregate, plan_aggregation
 from ..parallel.mesh import batch_counts, batch_spec, replicated
 from . import reconstruct as rec
+from . import stage2_graph as sg
 
 PRECISIONS = ("default", "highest")
 
@@ -370,7 +371,9 @@ class StageTimings:
     bracket the host's one wait for the card in each fetch. The ``collect``
     root counts ``route``: "device", "host", or "device_then_host" when
     device stage 3 ran but its result sent the request to the host
-    clusterer. With ``profile`` the stage spans hold the profile waits.
+    clusterer; ``dispatch.stage2`` counts ``batches`` (stage 2's batches on
+    this rank) and ``replayed`` (those run as a replay of the captured
+    graph). With ``profile`` the stage spans hold the profile waits.
 
     Device milliseconds from CUDA events (0 on the CPU, and 0 for a stage
     the request did not run): ``stage1_ms``, ``stage2_ms``, ``stage3_ms``
@@ -568,6 +571,11 @@ class SpeakerDiarizationPipeline:
         self.timings = StageTimings()
         self._request_ids = itertools.count()
         self._plans: Dict = {}  # aggregation plans by (kind, chunk count)
+        # stage 2's captured graphs by stage2_graph.graph_key, and how many
+        # this pipeline has captured
+        self._stage2_graphs: Dict = {}
+        self._stage2_lock = threading.Lock()
+        self.stage2_graph_captures = 0
         seg_cfg = config.segmentation
         self._min_num_frames = float(
             math.ceil(
@@ -773,35 +781,80 @@ class SpeakerDiarizationPipeline:
         )
         return (segs,) + self._post_process(segs, vf_dev)
 
-    def _stage2(self, chunks: torch.Tensor, chosen: torch.Tensor, with_internals: bool = False):
+    def _stage2_batch(self, windows: torch.Tensor, masks: torch.Tensor):
+        """One stage-2 batch: windows (B, window) and their chosen masks
+        (B, F) -> left-pack + log-mel features + ECAPA. Returns (embeddings
+        (B, D) float32, too_short (B,) bool, the packed signals (B, window),
+        the normalized wav_lens (B,))."""
+        emb_cfg = self.config.embedding
+        signals, wav_lens, too_short = mk.pack_and_lengths(
+            windows, masks, emb_cfg.mask_threshold, emb_cfg.min_num_samples
+        )
+        feats = fe.compute_features(signals, wav_lens, self.config.frontend)
+        emb = self.embedding_model(feats.to(self.emb_dtype), wav_lens)
+        return emb.to(torch.float32), too_short, signals, wav_lens
+
+    def _stage2_replay(self, key, chunks: torch.Tensor, index: torch.Tensor, masks: torch.Tensor):
+        """The batch ``chunks[index]`` under ``masks`` through the captured
+        graph of ``key``, captured first if this pipeline has none
+        (stage2_graph.py): (embeddings float32, too_short). One thread at a
+        time fills the graph's inputs, replays it and copies its outputs."""
+        with self._stage2_lock:
+            graph = self._stage2_graphs.get(key)
+            if graph is None:
+                graph = sg.Stage2Graph(
+                    lambda w, m: self._stage2_batch(w, m)[:2], chunks, index, masks
+                )
+                self._stage2_graphs[key] = graph
+                self.stage2_graph_captures += 1
+            return graph(chunks, index, masks)
+
+    def _stage2(
+        self,
+        chunks: torch.Tensor,
+        chosen: torch.Tensor,
+        with_internals: bool = False,
+        counts: Optional[Dict[str, int]] = None,
+    ):
         """chunks (num_padded, window), chosen (num_padded, S, F) -> batches
         of (gather windows + left-pack + log-mel features + ECAPA). Returns
         (embeddings (rows, D) in transfer_dtype, too_short (rows,) bool);
         ``with_internals`` adds the packed signals (rows, window) and the
         normalized wav_lens (rows,) as the pack kernel and its length step
-        computed them (the JAX package's ``stage2_debug``)."""
-        cfg = self.config
-        S = cfg.segmentation.num_speakers
+        computed them (the JAX package's ``stage2_debug``). A full batch on
+        the card replays the captured graph of the batch (stage2_graph.py);
+        every other batch, and every batch ``with_internals``, runs eagerly.
+        ``counts``, a dict, receives ``batches`` (this rank's) and
+        ``replayed`` (those of them run as a replay)."""
+        S = self.config.segmentation.num_speakers
         rows = chosen.reshape(chosen.shape[0] * S, -1)
         chunk_of_row = torch.arange(rows.shape[0], device=self.device) // S
+        eb = self.emb_batch
+        key = sg.graph_key(
+            self.device,
+            (eb, chunks.shape[1], rows.shape[1]),
+            (chunks.dtype, rows.dtype),
+            self.emb_dtype,
+            self.ecapa_layout,
+        )
         embs, shorts, packed, lens = [], [], [], []
-        for i in self._batch_starts(rows.shape[0], self.emb_batch):
-            windows = chunks[chunk_of_row[i : i + self.emb_batch]]
-            signals, wav_lens, too_short = mk.pack_and_lengths(
-                windows,
-                rows[i : i + self.emb_batch],
-                cfg.embedding.mask_threshold,
-                cfg.embedding.min_num_samples,
-            )
-            feats = fe.compute_features(signals, wav_lens, cfg.frontend)
-            emb = self.embedding_model(feats.to(self.emb_dtype), wav_lens)
-            embs.append(emb.to(torch.float32))
+        replayed = 0
+        for i in self._batch_starts(rows.shape[0], eb):
+            index, masks = chunk_of_row[i : i + eb], rows[i : i + eb]
+            if sg.engages(self.device, masks.shape[0], eb, with_internals):
+                emb, too_short = self._stage2_replay(key, chunks, index, masks)
+                replayed += 1
+            else:
+                emb, too_short, signals, wav_lens = self._stage2_batch(chunks[index], masks)
+                if with_internals:
+                    packed.append(signals)
+                    lens.append(wav_lens)
+            embs.append(emb)
             shorts.append(too_short)
-            if with_internals:
-                packed.append(signals)
-                lens.append(wav_lens)
-        n, eb = rows.shape[0], self.emb_batch
-        transfer = getattr(torch, cfg.transfer_dtype)
+        if counts is not None:
+            counts.update(batches=len(embs), replayed=replayed)
+        n = rows.shape[0]
+        transfer = getattr(torch, self.config.transfer_dtype)
         new = chunks.new_empty
         emb = self._joined(
             embs, new((0, self.ecapa_cfg.emb_dim), dtype=transfer), n, eb, transfer
@@ -994,12 +1047,13 @@ class SpeakerDiarizationPipeline:
         if self.profile:
             timings.segmentation = (at - t0) * 1e-9
         span = timings.begin("dispatch.stage2", root, at=at)
-        emb, too_short = self._stage2(chunks, chosen)
+        counts = {}
+        emb, too_short = self._stage2(chunks, chosen, counts=counts)
         if events:
             events[2].record()
         if self.profile:
             self._wait(events, 2)
-        timings.end(span)
+        timings.end(span, **counts)
         timings.embedding = timings.seconds(span) if self.profile else 0.0
 
         # stage 3 on the device, right behind stage 2: the host then fetches

@@ -2,8 +2,9 @@
 the clock fit of the program's wait spans onto the trace's
 ``cudaStreamSynchronize`` calls (pairs, rate, residuals), the root spans'
 coverage of the window, the collect routes, the card's idle put down to
-the innermost program span open at each moment, and the host cost of the
-span record itself. Imports no JAX; needs the card.
+the innermost program span open at each moment, the stage-2 batches
+replayed from the program's captured graph, and the host cost of the span
+record itself. Imports no JAX; needs the card.
 
     python3 scripts/span_report.py --workload v2.1-calls --seed 8100000011 \\
         --seconds 20 [--out spans-v2.1-calls.json]
@@ -123,6 +124,7 @@ def main():
     enqueue = [r.timings.segmentation for r in ctx["requests"]]
     cost = record_cost_ns()
     report["routes"] = spans.route_shares(ctx)
+    report["stage2_replayed_of_batches"] = replayed_of_batches(ctx)
     report["spans_per_request"] = statistics.mean(per_request)
     report["record_ns_per_span"] = cost
     report["record_us_per_request"] = 1e-3 * cost * statistics.mean(per_request)
@@ -134,6 +136,16 @@ def main():
             f.write(line + "\n")
     print(line, flush=True)
     return 0
+
+
+def replayed_of_batches(ctx):
+    """[replayed, batches] of the window's stage-2 batches, from the
+    ``dispatch.stage2`` spans' counters; None when they carry none."""
+    counted = [s[4] for rs in spans.requests_spans(ctx) for s in rs
+               if s[0] == "dispatch.stage2" and s[4]]
+    if not counted:
+        return None
+    return [sum(c["replayed"] for c in counted), sum(c["batches"] for c in counted)]
 
 
 def _innermost(ctx, fit, t):

@@ -469,3 +469,122 @@ def test_linkage_kernel_rejects_inputs(cuda):
         linkage_cuda.linkage_labels(D0[:64, :64].double(), embt[:64].double(), tvalid[:64], 0.7)
     with pytest.raises(ValueError):  # not contiguous
         linkage_cuda.linkage_labels(D0[:64, :128:2], embt[:64], tvalid[:64], 0.7)
+
+
+# ---------------------------------------------------------------------------
+# stage 2 as one captured CUDA graph (pipelines/stage2_graph.py) against the
+# eager chain, on one pipeline and the same inputs
+
+
+def _clip(seconds, seed):
+    """Two tones under noise, 16-bit."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 220.0 * t) * (t % 3 < 2) + 0.2 * np.sin(
+        2 * np.pi * 1100.0 * t
+    ) * (t % 5 > 1) + 0.05 * rng.standard_normal(t.shape)
+    return (np.clip(np.round(x * 20000.0), -32768, 32767) / 32768.0).astype(np.float32)
+
+
+def _graph_pipeline(dtype):
+    import dataclasses
+
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.config import DEFAULT_CONFIG
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        SpeakerDiarizationPipeline,
+    )
+
+    if dtype == "bfloat16":
+        return SpeakerDiarizationPipeline(seed=0)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="float32", transfer_dtype="float32")
+    return SpeakerDiarizationPipeline(config=cfg, seed=0, precision="highest")
+
+
+def _turns(annotation):
+    return [(t.start, t.end, t.label) for t in annotation.turns()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stage2_graph_matches_the_eager_chain(cuda, dtype):
+    """Every full batch of a 59 s request replays one capture, and gives the
+    embeddings and too-short flags of the eager chain on the same windows
+    and masks, bit for bit; the launch counters count each replay's
+    kernels once."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.ops import windows as win
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        precision_scope,
+    )
+
+    pipe = _graph_pipeline(dtype)
+    seg = pipe.config.segmentation
+    S, eb = seg.num_speakers, pipe.emb_batch
+    with precision_scope(pipe.precision), torch.inference_mode():
+        _, padded, wav, valid_frames, valid_samples = pipe._prepare(_clip(59.0, 1))
+        chunks = win.device_chunks(pipe._to_device(wav), padded, seg.window_size, seg.step_size)
+        chosen = pipe._stage1(chunks, valid_frames, valid_samples)[2]
+        counts = {}
+        emb, too_short = pipe._stage2(chunks, chosen, counts=counts)
+        before = [getattr(fn, attr) for fn, attr in _stage2_counters()]
+        emb2, _ = pipe._stage2(chunks, chosen)
+        launched = [getattr(fn, attr) - b for (fn, attr), b in zip(_stage2_counters(), before)]
+        rows = chosen.reshape(padded * S, -1)
+        index = torch.arange(rows.shape[0], device=cuda) // S
+        eager = [pipe._stage2_batch(chunks[index[i : i + eb]], rows[i : i + eb])
+                 for i in range(0, rows.shape[0], eb)]
+    batches = len(eager)
+    assert counts == {"batches": batches, "replayed": batches}
+    assert pipe.stage2_graph_captures == 1
+    f32 = dtype == "float32"
+    assert launched == [batches, batches, 0 if f32 else batches, batches if f32 else 0]
+    want = torch.cat([e[0] for e in eager]).to(emb.dtype)
+    assert torch.equal(too_short, torch.cat([e[1] for e in eager]))
+    assert torch.equal(emb, want) and torch.equal(emb2, want)
+
+
+def _stage2_counters():
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines import stage2_graph
+
+    return stage2_graph.LAUNCH_COUNTERS
+
+
+@pytest.mark.cuda
+def test_stage2_graph_requests(cuda, monkeypatch):
+    """Two request lengths in different chunk buckets share one capture;
+    the second request dispatches under sync debug mode "error"; its
+    ``dispatch.stage2`` span counts every batch replayed; the turns equal
+    the eager path's; "highest" precision captures a graph of its own, and
+    so does a float32 pipeline."""
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines import stage2_graph
+    from pyannote_audio_speaker_diarization_cpp_tpu_torch.pipelines.diarization import (
+        StageTimings,
+        precision_scope,
+    )
+
+    pipe = _graph_pipeline("bfloat16")
+    long, short = _clip(59.0, 2), _clip(28.0, 3)
+    graphed = {"long": _turns(pipe(long))}
+    assert pipe.stage2_graph_captures == 1
+    t = StageTimings()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipe._dispatch(short, timings=t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graphed["short"] = _turns(pipe._collect(pending, timings=t))
+    counts = {s.name: s.counters for s in t.spans}["dispatch.stage2"]
+    batches = pending["num_padded"] * pipe.config.segmentation.num_speakers // pipe.emb_batch
+    assert counts == {"batches": batches, "replayed": batches}
+    assert pipe.stage2_graph_captures == 1
+    assert pending["num_padded"] != pipe._prepare(long)[1]
+    with precision_scope("highest"):
+        pipe(short)
+    assert pipe.stage2_graph_captures == 2
+    monkeypatch.setattr(stage2_graph, "engages", lambda *args: False)
+    assert graphed == {"long": _turns(pipe(long)), "short": _turns(pipe(short))}
+    assert pipe.stage2_graph_captures == 2
+    monkeypatch.undo()
+    float32 = _graph_pipeline("float32")
+    assert _turns(float32(short)) == _turns(float32(short))
+    assert float32.stage2_graph_captures == 1

@@ -152,9 +152,12 @@ def test_profiled_stage_spans_hold_the_jax_fields(pipe):
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_the_collect_root_counts_its_route(records, route):
-    counted = [s.counters for s in records[route].spans if s.counters]
-    assert counted == [{"route": route}]
-    assert _by_name(records[route])["collect"].counters == {"route": route}
+    counted = {s.name: s.counters for s in records[route].spans if s.counters}
+    assert set(counted) == {"dispatch.stage2", "collect"}
+    assert counted["collect"] == {"route": route}
+    # on the CPU every stage-2 batch runs eagerly
+    assert counted["dispatch.stage2"]["replayed"] == 0
+    assert counted["dispatch.stage2"]["batches"] > 0
 
 
 def test_device_stage3_sent_to_the_host_counts_both(pipe):
